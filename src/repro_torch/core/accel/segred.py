@@ -1,0 +1,99 @@
+"""Partition-time segmented reduction: the CUDA kernel's wrapper and its
+plain PyTorch version.
+
+``segmented_reduce(vals, pid, op)`` computes, for every candidate row r,
+``T[r, p] = reduce_{j: pid[r, j] == p} vals[r, j]`` — max under the
+streaming model, sum under spmd — with the identity (-inf for max, 0 for
+sum) on segments with no member. It replaces the JAX package's Pallas
+kernel (``repro/core/accel/pallas_segred.py``).
+
+On a CUDA tensor the wrapper launches the hand-written kernel
+(``csrc/segred.cu``, built at first use by ``cuda_build``) on the current
+stream, or raises; there is no fallback. Only a CPU tensor takes
+``segmented_reduce_plain``. ``LAUNCHES`` counts kernel launches, so a run
+can show that the main path went through the kernel.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+#: kernel launches since import (or since a caller last set it to 0)
+LAUNCHES = 0
+
+OPS = {"max": 0, "sum": 1}
+
+_ENTRY = {torch.float32: "segred_f32", torch.float64: "segred_f64"}
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+
+def segmented_reduce_plain(vals: torch.Tensor, pid: torch.Tensor,
+                           op: str) -> torch.Tensor:
+    """The kernel's function in plain PyTorch. Max: one [N, n, n] partition
+    one-hot and a masked max over the node axis. Sum: node j's value is
+    added into its segment for j = 0 .. n-1 in turn, the kernel's (and
+    ``np.add.at``'s) order, so the two agree bitwise."""
+    n = vals.shape[1]
+    iota = torch.arange(n, dtype=pid.dtype, device=pid.device)
+    if op == "max":
+        onehot = pid[:, :, None] == iota[None, None, :]      # [N, j, p]
+        return torch.where(onehot, vals[:, :, None], -torch.inf).amax(dim=1)
+    out = torch.zeros_like(vals)
+    for j in range(n):
+        out = out + torch.where(pid[:, j, None] == iota[None, :],
+                                vals[:, j, None], 0.0)
+    return out
+
+
+def _check(vals: torch.Tensor, pid: torch.Tensor, op: str) -> None:
+    if op not in OPS:
+        raise ValueError(f"op must be 'max' or 'sum', got {op!r}")
+    if vals.dtype not in _ENTRY:
+        raise TypeError(f"vals must be float32 or float64, got {vals.dtype}")
+    if pid.dtype != torch.int64:
+        raise TypeError(f"pid must be int64, got {pid.dtype}")
+    if vals.dim() != 2 or pid.shape != vals.shape:
+        raise ValueError(f"vals and pid must both be [N, n]; got "
+                         f"{tuple(vals.shape)} and {tuple(pid.shape)}")
+    N, n = vals.shape
+    if N == 0 or n == 0 or N * n >= 2 ** 31:
+        raise ValueError(f"[N, n] = [{N}, {n}] is outside the kernel's range "
+                         f"(1 <= N * n < 2**31)")
+    if vals.device != pid.device:
+        raise ValueError(f"vals on {vals.device} but pid on {pid.device}")
+    if not (vals.is_contiguous() and pid.is_contiguous()):
+        raise ValueError("vals and pid must be contiguous")
+
+
+def segmented_reduce(vals: torch.Tensor, pid: torch.Tensor,
+                     op: str) -> torch.Tensor:
+    """[N, n] vals + [N, n] int64 monotone segment ids -> [N, n] per-segment
+    max or sum. CUDA tensors launch the kernel; CPU tensors take the plain
+    version; any other device raises."""
+    global LAUNCHES
+    _check(vals, pid, op)
+    if vals.device.type == "cpu":
+        return segmented_reduce_plain(vals, pid, op)
+    if vals.device.type != "cuda":
+        raise ValueError(f"segmented_reduce runs on cuda or cpu tensors, "
+                         f"got {vals.device}")
+    from repro_torch.core.accel import cuda_build
+    fn = getattr(cuda_build.load("segred"), _ENTRY[vals.dtype])
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    N, n = vals.shape
+    out = torch.empty_like(vals)
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = fn(vals.data_ptr(), pid.data_ptr(), out.data_ptr(), N, n,
+                 OPS[op], stream)
+    if err != 0:
+        raise RuntimeError(f"segred kernel launch failed: CUDA error {err} "
+                           f"(N={N}, n={n}, dtype={vals.dtype}, op={op})")
+    LAUNCHES += 1
+    return out
+
+
+__all__ = ["segmented_reduce", "segmented_reduce_plain", "LAUNCHES", "OPS"]

@@ -1,0 +1,53 @@
+"""Device and precision policy of the port.
+
+``default_device()`` is ``cuda``; with no card it raises
+``EngineUnavailable`` and never falls back to the CPU. A caller that wants
+the CPU says so (``device="cpu"``), and then every kernel wrapper takes its
+plain PyTorch version.
+
+Floats are float32 by default (the JAX engine's dtype without x64) and
+float64 on request. Importing this module pins float32 matmuls to full
+precision: ``_eval_core``'s one-hot segment sums are einsums, and TF32 keeps
+about three decimal digits, which would break the float32 contract.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+from repro_torch.core.accel import EngineUnavailable
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+torch.set_float32_matmul_precision("highest")
+
+FLOAT_DTYPES = (torch.float32, torch.float64)
+
+
+def default_device() -> torch.device:
+    """The card. Raises ``EngineUnavailable`` when none is visible."""
+    if not torch.cuda.is_available():
+        raise EngineUnavailable(
+            "the torch engine runs on a CUDA card and none is visible; pass "
+            "device='cpu' to run the kernels' plain versions on the CPU, or "
+            "select engine='numpy' / engine='scalar'")
+    return torch.device("cuda")
+
+
+def resolve_device(device: Union[None, str, torch.device] = None
+                   ) -> torch.device:
+    """``None`` means the card; anything else is taken as asked."""
+    return default_device() if device is None else torch.device(device)
+
+
+def resolve_dtype(dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    dtype = torch.float32 if dtype is None else dtype
+    if dtype not in FLOAT_DTYPES:
+        raise ValueError(f"dtype must be torch.float32 or torch.float64, "
+                         f"got {dtype}")
+    return dtype
+
+
+__all__ = ["default_device", "resolve_device", "resolve_dtype",
+           "FLOAT_DTYPES"]
