@@ -1,29 +1,48 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile]
 
 Phases, each printed on its own line; any failure exits non-zero and no
 phase's failure is caught while the run goes on:
 
   1. device   the card's name, power limit and CUDA version (no card: exit 1)
   2. build    the hand-written kernels, built from ``src/repro_torch/csrc``
-              with nvcc for sm_90a; build seconds and ptxas's register /
-              shared-memory report
-  3. kernels  each kernel held against its plain PyTorch version on the card
-              (segred: max bitwise, sum within 1e-6 relative in float32 and
-              1e-12 in float64) at the main path's shape and a large one, in
-              float32 and float64, with CUDA-event times beside the plain
-              version's, one PyTorch library call's and the bound
+              with nvcc for sm_90a, one nvcc per source, all started
+              together (a later run reuses the libraries and says so);
+              build seconds and ptxas's register / shared-memory report
+  3. kernels  each kernel held against its plain PyTorch version on the card,
+              with CUDA-event times beside the plain version's, one PyTorch
+              library call's (where one exists) and the bound:
+              segred (max bitwise, sum within 1e-6 relative in float32 and
+              1e-12 in float64) at the mapper's shape and a large one, in
+              float32 and float64; wkv6 (1e-4 abs and rel with float32
+              r/k/v, 2e-2 with bfloat16) at the JAX kernel test's shapes, a
+              strong-decay case and the LM phase's shape (2, 4096, 32, 64)
   4. main     ``repro_torch.core.pipeline.optimise_mapping`` on tinyllama-1.1b
               / train_4k / V5E_POD with the rule-based optimiser and the torch
               engine, for two requests; each must equal the port's numpy
               engine (points, variables, history, objective) and the JAX
-              package's recorded values, and must have launched the kernels
+              package's recorded values, and must have launched segred
+  5. lm       ``repro_torch.models.model.Model(rwkv6-1.6b, use_flash=True)``
+              at full width: (a) the first 2 layers with float32 weights from
+              the seeded numpy recipe, B=1, T=128, held to the JAX package's
+              record (loss 1e-4 relative, sampled logits 1e-3 absolute);
+              (b) all 24 layers, bfloat16 weights drawn on the card from a
+              seed, B=2, T=4096: wall per forward, tokens/s, WKV launches
+              per forward (must be 24) and peak memory; every in-model WKV
+              launch held to the plain version on the same inputs (2e-2 abs
+              and rel); the loss held to the same model with the plain WKV
+              (1e-3 relative); the logits held to that model's within 1.5
+              times the distance between that model and the same model
+              with the recurrence summed in float64 (random bfloat16
+              weights over 24 layers turn summation order alone into logit
+              differences far above a fixed 6e-2, see PERF.md)
 
-  5. profile (only with ``--profile``) the first request once more under
-              ``torch.profiler``: device busy time, kernel count and the
-              kernels that take the most device time, beside the wall time
+  6. profile (only with ``--profile``) the first mapping request and one LM
+              forward once more under ``torch.profiler``: device busy time,
+              kernel count and the kernels that take the most device time,
+              beside the wall time
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Longer records go to
@@ -45,6 +64,9 @@ OUT_DIR = ROOT / "chiprun_out"
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 
+#: the hand-written kernels, one source each under src/repro_torch/csrc
+KERNELS = ("segred", "wkv6")
+
 #: the JAX package's results for these requests (CPU run of repro's
 #: engine="jax" and engine="numpy", which agree): points, objective,
 #: partitions, history length
@@ -58,6 +80,45 @@ REQUESTS = (
 )
 
 SEGRED_SHAPES = ((28, 47), (65536, 47))     # main path's, and a large one
+
+#: wkv6 check shapes (B, T, H, hs) and decay ranges: tests/test_kernels.py's
+#: WKV shapes, a strong-decay case, and the [lm] phase's shape
+WKV_CHECKS = (
+    ((1, 128, 2, 32), (0.55, 0.95)), ((2, 256, 4, 64), (0.55, 0.95)),
+    ((1, 100, 2, 64), (0.55, 0.95)), ((1, 64, 1, 128), (0.55, 0.95)),
+    ((1, 256, 2, 64), (0.02, 0.1)),
+)
+WKV_LM_SHAPE = (2, 4096, 32, 64)
+WKV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+
+#: the JAX package's loss and sampled logits [b, t, v, logit] for the port's
+#: seeded numpy recipe (repro_torch.models.convert, seed 0): rwkv6-1.6b at
+#: full width, layer_range (0, 2), float32, B=1, T=128; made on the CPU by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_support.py \
+#:       rwkv6-1.6b 2 1 128 0
+LM_RECORD = {
+    "arch": "rwkv6-1.6b", "layers": 2, "batch": 1, "seq": 128, "seed": 0,
+    "loss": 11.68708324432373,
+    "logits": [
+        [0, 0, 0, 0.28645339608192444], [0, 0, 1, -0.7389975786209106],
+        [0, 0, 32767, -0.03645841404795647],
+        [0, 0, 65535, -2.2897133827209473],
+        [0, 1, 0, -0.2396697849035263], [0, 1, 1, -0.4577353000640869],
+        [0, 1, 32767, -0.07143926620483398],
+        [0, 1, 65535, -1.275397539138794],
+        [0, 64, 0, 0.10178482532501221], [0, 64, 1, 0.7287406325340271],
+        [0, 64, 32767, -2.187739372253418],
+        [0, 64, 65535, 1.1632769107818604],
+        [0, 127, 0, 0.9406948089599609], [0, 127, 1, 1.22970712184906],
+        [0, 127, 32767, 0.11191505193710327],
+        [0, 127, 65535, 0.2801424264907837],
+    ],
+}
+LM_FULL = {"batch": 2, "seq": 4096, "seed": 1, "runs": 3}
+#: [lm] (b): the kernel forward's logits may lie at most this many times as
+#: far from the plain-WKV forward's as the plain forward's lie from the same
+#: model with its recurrence summed in float64
+LOGIT_YARDSTICK = 1.5
 
 
 def fail(msg: str) -> None:
@@ -107,16 +168,18 @@ def phase_device():
 def phase_build():
     from repro_torch.core.accel import cuda_build
     t0 = time.perf_counter()
-    cuda_build.load("segred")
-    info = cuda_build.BUILD_INFO["segred"]
-    how = ("reused the library an earlier run built from the same source"
-           if info["cached"] else f"nvcc {info['seconds']:.2f} s")
-    say("build", f"segred: {how}, load total "
-                 f"{time.perf_counter() - t0:.2f} s -> {info['path']}")
-    for line in info["ptxas"].splitlines():
-        if "ptxas" in line or "Used" in line:
-            say("build", f"  {line.strip()}")
-    return info
+    cuda_build.load_all(KERNELS)
+    wall = time.perf_counter() - t0
+    for name in KERNELS:
+        info = cuda_build.BUILD_INFO[name]
+        how = ("reused the library an earlier run built from the same source"
+               if info["cached"] else f"nvcc {info['seconds']:.2f} s")
+        say("build", f"{name}: {how} -> {info['path']}")
+        for line in info["ptxas"].splitlines():
+            if "ptxas" in line or "Used" in line:
+                say("build", f"  {line.strip()}")
+    say("build", f"all kernels loaded in {wall:.2f} s (builds in parallel)")
+    return {name: dict(cuda_build.BUILD_INFO[name]) for name in KERNELS}
 
 
 def _segred_inputs(N: int, n: int, dtype, seed: int):
@@ -197,6 +260,81 @@ def phase_kernels():
     return rows
 
 
+def _wkv_inputs(shape, w_range, dtype, seed):
+    """(B, T, H, hs) r, k, v ~ N(0, 0.25) in ``dtype``, float32 w uniform
+    in ``w_range`` and u ~ N(0, 0.01) of shape (H, hs), drawn on the card
+    from ``seed``."""
+    import torch
+    B, T, H, hs = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+
+    def normal(*size):
+        return torch.randn(size, generator=g, device="cuda")
+
+    r, k, v = (0.5 * normal(B, T, H, hs) for _ in range(3))
+    lo, hi = w_range
+    w = lo + (hi - lo) * torch.rand((B, T, H, hs), generator=g,
+                                    device="cuda")
+    u = 0.1 * normal(H, hs)
+    return r.to(dtype), k.to(dtype), v.to(dtype), w, u
+
+
+def _wkv_bound(shape, dtype):
+    """The least time for the function on this card: each input read once
+    and the output written once (r, k, v, out in their dtype, w and u in
+    float32), and about 4*hs operations per (token, channel) — two
+    multiply-adds of the readout and two of the state update — at the
+    float32 rate, since the kernel computes in float32."""
+    import torch
+    B, T, H, hs = shape
+    n = B * T * H * hs
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = n * (4 * esize + 4) + H * hs * 4
+    ops = n * 4 * hs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def phase_wkv6():
+    import torch
+    from repro_torch.kernels import rwkv6_scan
+    checks = [(shape, w, dtype) for shape, w in WKV_CHECKS
+              for dtype in (torch.float32, torch.bfloat16)]
+    checks.append((WKV_LM_SHAPE, (0.55, 0.95), torch.bfloat16))
+    rows = []
+    for i, (shape, w_range, dtype) in enumerate(checks):
+        args = _wkv_inputs(shape, w_range, dtype, seed=100 + i)
+        got = rwkv6_scan.wkv6(*args)
+        want = rwkv6_scan.wkv6_plain(*args)
+        torch.cuda.synchronize()
+        dname = str(dtype).replace("torch.", "")
+        tol = WKV_TOL[dname]
+        gf, wf = got.float(), want.float()
+        diff = (gf - wf).abs()
+        err = float(diff.max())
+        if got.dtype != dtype or not bool(torch.isfinite(gf).all()) or \
+                not bool((diff <= tol + tol * wf.abs()).all()):
+            fail(f"wkv6 {dname} {shape} w in {w_range}: max abs err {err:.3g}"
+                 f" beyond {tol} abs and rel of the plain version")
+        big = shape[1] >= 1024
+        ms = cuda_ms(lambda: rwkv6_scan.wkv6(*args), 20 if big else 200)
+        plain_ms = cuda_ms(lambda: rwkv6_scan.wkv6_plain(*args),
+                           2 if big else 5, warmup=1)
+        row = {"shape": list(shape), "w_range": list(w_range),
+               "dtype": dname, "max_abs_err": err, "ms": ms,
+               "plain_ms": plain_ms, "library_ms": None,
+               **_wkv_bound(shape, dtype)}
+        rows.append(row)
+        say("kernels", f"wkv6 {dname} (B,T,H,hs)={shape} w in {w_range}: ok, "
+                       f"max abs err {err:.3g}; kernel {ms:.5f} ms, plain "
+                       f"{plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
+                       f"({row['bound_by']}); no single library call")
+    return rows
+
+
 def _history(points):
     return [(int(x), float(y)) for x, y in points]
 
@@ -273,27 +411,221 @@ def phase_main():
     return runs, launches
 
 
-def phase_profile(runs):
-    """The first request once more under torch.profiler. Device time is the
-    sum of the traced kernel and copy durations (one stream, so they do not
-    overlap); the idle share is one minus that over the unprofiled wall
-    time of the same request in phase 4."""
+def _lm_batch(vocab, batch, seq, seed):
+    import torch
+    from repro_torch.models import convert
+    data = convert.recipe_batch(vocab, batch, seq, seed)
+    return {k: torch.from_numpy(v).to("cuda") for k, v in data.items()}
+
+
+def _lm_record_check():
+    """(a) float32 weights from the seeded numpy recipe, the first layers
+    at full width, held to the JAX package's record."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import rwkv6_scan
+    from repro_torch.models import convert
+    from repro_torch.models.model import Model
+
+    rec = LM_RECORD
+    arch = get_arch(rec["arch"])
+    model = Model(arch, layer_range=(0, rec["layers"]), use_flash=True,
+                  device="meta")
+    shapes = {k: tuple(t.shape) for k, t in model.state_dict().items()}
+    t0 = time.perf_counter()
+    model.load_state_dict(convert.params_from_jax(
+        convert.nest(convert.recipe_params(shapes, rec["seed"])),
+        device="cuda", dtype=torch.float32), strict=True, assign=True)
+    setup_s = time.perf_counter() - t0
+    batch = _lm_batch(arch.vocab_size, rec["batch"], rec["seq"], rec["seed"])
+    rwkv6_scan.LAUNCHES = 0
+    logits, _ = model(batch)
+    loss = float(model.loss(batch))
+    torch.cuda.synchronize()
+    launches = rwkv6_scan.LAUNCHES
+    if launches != 2 * rec["layers"]:
+        fail(f"lm (a): {launches} wkv6 launches, expected "
+             f"{2 * rec['layers']} (forward and loss, one per layer)")
+    loss_rel = abs(loss - rec["loss"]) / abs(rec["loss"])
+    logit_err = max(abs(float(logits[b, t, v]) - want)
+                    for b, t, v, want in rec["logits"])
+    if not (loss_rel <= 1e-4 and logit_err <= 1e-3):
+        fail(f"lm (a): loss {loss!r} vs JAX record {rec['loss']!r} (rel "
+             f"{loss_rel:.3g}, limit 1e-4); sampled logits off by "
+             f"{logit_err:.3g} (limit 1e-3)")
+    say("lm", f"(a) {rec['arch']} layers 0-{rec['layers']} float32, "
+              f"B={rec['batch']} T={rec['seq']}: loss {loss!r} vs JAX "
+              f"record {rec['loss']!r} (rel {loss_rel:.3g}); sampled "
+              f"logits max abs err {logit_err:.3g}; wkv6 launches "
+              f"{launches}; recipe + copy {setup_s:.2f} s")
+    return {"loss": loss, "loss_rel_err": loss_rel,
+            "logit_max_abs_err": logit_err, "launches": launches,
+            "setup_s": setup_s}
+
+
+def _wkv_float64(r, k, v, w, u):
+    """``ref.rwkv6``'s recurrence (zero initial state) summed in float64
+    and rounded to r's dtype: the same function in a more exact order, the
+    yardstick for what summation order alone does to the forward."""
+    import torch
+    B, T, H, hs = r.shape
+    rd, kd, vd, wd = (x.double() for x in (r, k, v, w))
+    ud = u.double()[None, :, :, None]
+    S = torch.zeros((B, H, hs, hs), dtype=torch.float64, device=r.device)
+    outs = []
+    for t in range(T):
+        kv = kd[:, t, :, :, None] * vd[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rd[:, t], S + ud * kv))
+        S = wd[:, t, :, :, None] * S + kv
+    return torch.stack(outs, dim=1).to(r.dtype), S
+
+
+def _logit_gap(a, b):
+    """Max abs difference of two logits tensors, and the share of logits
+    beyond 6e-2 abs and rel of ``b``."""
+    af, bf = a.float(), b.float()
+    diff = (af - bf).abs()
+    return float(diff.max()), float((diff > 6e-2 + 6e-2 * bf.abs())
+                                    .float().mean())
+
+
+def phase_lm():
+    """(a), then (b): the full model in bfloat16 at T=4096 through the
+    kernel, timed; every one of its kernel launches held to the plain
+    version on the same inputs; its loss held to the same model with the
+    plain WKV; its logits held to that model's, within 1.5 times that
+    model's distance from the same model with a float64 recurrence."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ref, rwkv6_scan
+    from repro_torch.models.model import Model
+
+    record = _lm_record_check()
+    torch.cuda.empty_cache()
+
+    cfg = LM_FULL
+    arch = get_arch("rwkv6-1.6b")
+    t0 = time.perf_counter()
+    model = Model(arch, use_flash=True, device="cuda",
+                  generator=torch.Generator("cuda").manual_seed(cfg["seed"]))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in model.state_dict().values())
+    batch = _lm_batch(arch.vocab_size, cfg["batch"], cfg["seq"], cfg["seed"])
+    tokens = cfg["batch"] * cfg["seq"]
+
+    model(batch)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    rwkv6_scan.LAUNCHES = 0
+    for _ in range(cfg["runs"]):
+        t0 = time.perf_counter()
+        model(batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = rwkv6_scan.LAUNCHES
+    peak = torch.cuda.max_memory_allocated()
+    per_forward = launches / cfg["runs"]
+    if per_forward != arch.num_layers:
+        fail(f"lm (b): {per_forward} wkv6 launches per forward, expected "
+             f"{arch.num_layers}")
+
+    # one more forward, each launch held to the plain version on its inputs
+    kernel_call, layer_errs = rwkv6_scan.wkv6, []
+    tol = WKV_TOL["bfloat16"]
+
+    def held(*args):
+        out = kernel_call(*args)
+        want = rwkv6_scan.wkv6_plain(*args).float()
+        # the largest share of the limit any element uses (<= 1 holds)
+        used = (out.float() - want).abs() / (tol + tol * want.abs())
+        layer_errs.append(float(used.max()))
+        return out
+
+    rwkv6_scan.wkv6 = held
+    try:
+        logits, _ = model(batch)
+    finally:
+        rwkv6_scan.wkv6 = kernel_call
+    if len(layer_errs) != arch.num_layers or max(layer_errs) > 1.0:
+        fail(f"lm (b): in-model wkv6 launches against the plain version use "
+             f"{layer_errs} of the limit ({tol} abs and rel)")
+    loss = float(model.loss(batch))
+
+    plain = Model(arch, use_flash=False, device="meta")
+    plain.load_state_dict(model.state_dict(), strict=True, assign=True)
+    rwkv6_scan.LAUNCHES = 0
+    t0 = time.perf_counter()
+    want, _ = plain(batch)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    want_loss = float(plain.loss(batch))
+    oracle = ref.rwkv6
+    ref.rwkv6 = _wkv_float64
+    try:
+        exact, _ = plain(batch)
+    finally:
+        ref.rwkv6 = oracle
+    if rwkv6_scan.LAUNCHES:
+        fail("lm (b): the plain-WKV model launched the kernel")
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    finite = bool(torch.isfinite(logits.float()).all()) and loss == loss
+    if logits.shape != (cfg["batch"], cfg["seq"], arch.vocab_size) or \
+            not finite or loss_rel > 1e-3:
+        fail(f"lm (b): logits {tuple(logits.shape)} finite={finite}; loss "
+             f"{loss!r} vs plain-WKV {want_loss!r} (rel {loss_rel:.3g}, "
+             f"limit 1e-3)")
+    gaps = {"kernel_vs_plain": _logit_gap(logits, want),
+            "plain_vs_float64": _logit_gap(want, exact),
+            "kernel_vs_float64": _logit_gap(logits, exact)}
+    # the yardstick: how far summation order alone moves these logits
+    logit_limit = LOGIT_YARDSTICK * gaps["plain_vs_float64"][0]
+    if not gaps["kernel_vs_plain"][0] <= logit_limit:
+        fail(f"lm (b): logits {gaps['kernel_vs_plain'][0]:.3g} from the "
+             f"plain-WKV forward's, beyond {LOGIT_YARDSTICK} times the "
+             f"plain forward's distance from its float64 recurrence "
+             f"({gaps['plain_vs_float64'][0]:.3g})")
+    mean_wall = sum(walls) / len(walls)
+    out = {"record": record, "params": n_params, "init_s": init_s,
+           "batch": cfg["batch"], "seq": cfg["seq"], "walls_s": walls,
+           "tokens_per_s": tokens / mean_wall, "launches": launches,
+           "launches_per_forward": per_forward, "peak_bytes": peak,
+           "layer_limit_used": layer_errs,
+           "loss": loss, "plain_loss": want_loss, "loss_rel_err": loss_rel,
+           "logit_gaps": gaps, "logit_limit": logit_limit,
+           "plain_wall_s": plain_wall}
+    say("lm", f"(b) rwkv6-1.6b, {arch.num_layers} layers, {n_params} "
+              f"parameters bfloat16 (drawn on the card in {init_s:.2f} s), "
+              f"B={cfg['batch']} T={cfg['seq']}: wall per forward "
+              f"{', '.join(f'{w:.4f}' for w in walls)} s, "
+              f"{out['tokens_per_s']:.0f} tokens/s; wkv6 launches "
+              f"{launches} in {cfg['runs']} forwards ({per_forward:.0f} per "
+              f"forward); peak memory {peak / 2**30:.2f} GiB")
+    say("lm", f"(b) each of the {len(layer_errs)} in-model wkv6 launches "
+              f"holds its plain version on the same inputs, using at most "
+              f"{max(layer_errs):.3g} of the limit ({tol} abs and rel); "
+              f"loss {loss!r} vs plain-WKV forward {want_loss!r} "
+              f"(rel {loss_rel:.3g}, limit 1e-3; plain forward "
+              f"{plain_wall:.2f} s)")
+    say("lm", "(b) logits, max abs diff / share beyond 6e-2 abs and rel: " +
+        "; ".join(f"{k.replace('_', ' ')} {v[0]:.3g} / {v[1]:.3g}"
+                  for k, v in gaps.items()) +
+        f"; kernel vs plain held within {logit_limit:.3g} "
+        f"({LOGIT_YARDSTICK} x plain vs float64)")
+    del plain, want, exact
+    return model, batch, out
+
+
+def _profile(fn):
+    """Device events of ``fn()`` under torch.profiler, summed by kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.configs import SHAPES_BY_NAME, get_arch
-    from repro_torch.core.pipeline import optimise_mapping
-    from repro_torch.core.platform import V5E_POD
-
-    req = REQUESTS[0]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        optimise_mapping(get_arch("tinyllama-1.1b"),
-                         SHAPES_BY_NAME["train_4k"], V5E_POD,
-                         optimiser="rule_based",
-                         objective=req["objective"],
-                         exec_model=req["exec_model"], engine="torch")
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -301,15 +633,65 @@ def phase_profile(runs):
     for e in dev:
         tot, cnt = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (tot + e.device_time_total, cnt + 1)
+    return wall, dev, by_name
+
+
+def _top(by_name, n=8):
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:n]
+    return [{"name": k[:120], "device_s": v[0] * 1e-6, "count": v[1]}
+            for k, v in top]
+
+
+def phase_profile_lm(model, batch, lm):
+    """One LM forward under torch.profiler: device busy time, the WKV
+    kernel's share of it, and the top kernels."""
+    wall, dev, by_name = _profile(lambda: model(batch))
+    device_s = sum(tot for tot, _ in by_name.values()) * 1e-6
+    plain_wall = min(lm["walls_s"])
+    out = {"profiled_wall_s": wall, "wall_s": plain_wall,
+           "device_s": device_s, "device_events": len(dev),
+           "idle_share": (1.0 - device_s / plain_wall) if dev else None,
+           "top": _top(by_name)}
+    if not dev:
+        say("profile", "lm: the profiler traced no device activity: device "
+                       "time not measured")
+        return out
+    wkv = [v for k, v in by_name.items() if "wkv6_kernel" in k]
+    out["wkv6_device_s"] = sum(v[0] for v in wkv) * 1e-6
+    out["wkv6_events"] = sum(v[1] for v in wkv)
+    out["wkv6_share"] = out["wkv6_device_s"] / device_s
+    say("profile", f"lm forward: {len(dev)} device events, device busy "
+                   f"{device_s:.4f} s of {plain_wall:.4f} s wall (idle share "
+                   f"{out['idle_share']:.4f}); wkv6 kernel "
+                   f"{out['wkv6_device_s']:.5f} s in {out['wkv6_events']} "
+                   f"launches = {out['wkv6_share']:.4f} of device time")
+    for row in out["top"]:
+        say("profile", f"  {row['device_s']:.5f} s  x{row['count']}  "
+                       f"{row['name']}")
+    return out
+
+
+def phase_profile(runs):
+    """The first request once more under torch.profiler. Device time is the
+    sum of the traced kernel and copy durations (one stream, so they do not
+    overlap); the idle share is one minus that over the unprofiled wall
+    time of the same request in phase 4."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.core.pipeline import optimise_mapping
+    from repro_torch.core.platform import V5E_POD
+
+    req = REQUESTS[0]
+    wall, dev, by_name = _profile(lambda: optimise_mapping(
+        get_arch("tinyllama-1.1b"), SHAPES_BY_NAME["train_4k"], V5E_POD,
+        optimiser="rule_based", objective=req["objective"],
+        exec_model=req["exec_model"], engine="torch"))
     device_s = sum(tot for tot, _ in by_name.values()) * 1e-6
     plain_wall = runs[0]["wall_s"]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
     out = {"request": runs[0]["request"], "profiled_wall_s": wall,
            "wall_s": plain_wall, "device_s": device_s,
            "device_events": len(dev),
            "idle_share": (1.0 - device_s / plain_wall) if dev else None,
-           "top": [{"name": k[:120], "device_s": v[0] * 1e-6, "count": v[1]}
-                   for k, v in top]}
+           "top": _top(by_name)}
     if not dev:
         say("profile", "the profiler traced no device activity: device "
                        "time not measured")
@@ -337,11 +719,18 @@ def main() -> None:
     import torch
     build = phase_build()
     rows = phase_kernels()
+    wkv_rows = phase_wkv6()
     runs, launches = phase_main()
-    profiled = phase_profile(runs) if "--profile" in sys.argv[1:] else None
+    model, batch, lm = phase_lm()
+    profiled = None
+    if "--profile" in sys.argv[1:]:
+        profiled = {"mapping": phase_profile(runs),
+                    "lm": phase_profile_lm(model, batch, lm)}
 
     main_row = next(r for r in rows if (r["N"], r["n"]) == SEGRED_SHAPES[0]
                     and r["dtype"] == "float32" and r["op"] == "max")
+    lm_row = next(r for r in wkv_rows
+                  if tuple(r["shape"]) == WKV_LM_SHAPE)
     kernels = [{
         "name": "segred", "route": "cuda",
         "source": "src/repro_torch/csrc/segred.cu",
@@ -351,15 +740,24 @@ def main() -> None:
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
         "library_ms": main_row["library_ms"],
+    }, {
+        "name": "wkv6", "route": "cuda",
+        "source": "src/repro_torch/csrc/wkv6.cu",
+        "replaces": "src/repro/kernels/rwkv6_scan.py:27",
+        "launches": lm["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in wkv_rows),
+        "ms": lm_row["ms"], "plain_ms": lm_row["plain_ms"],
+        "bound_ms": lm_row["bound_ms"], "bound_by": lm_row["bound_by"],
+        "library_ms": None,
     }]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
         "device": kind, "nvidia_smi": smi_line,
         "torch": torch.__version__, "cuda": torch.version.cuda,
-        "build": {"seconds": build["seconds"], "cached": build["cached"],
-                  "ptxas": build["ptxas"]},
-        "segred": rows, "main": runs, "profile": profiled,
-        "kernels": kernels}, indent=1))
+        "build": {name: {k: info[k] for k in ("seconds", "cached", "ptxas")}
+                  for name, info in build.items()},
+        "segred": rows, "wkv6": wkv_rows, "main": runs, "lm": lm,
+        "profile": profiled, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -22,8 +22,9 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 
@@ -36,6 +37,7 @@ BUILD_INFO: Dict[str, dict] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
+_NAME_LOCKS: Dict[str, threading.Lock] = {}
 
 
 #: the repository root's ``build/`` (listed in ``.gitignore``)
@@ -61,8 +63,11 @@ def find_nvcc() -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built if needed. Builds of
+    different sources may run at once (``load_all``)."""
     with _LOCK:
+        name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
@@ -99,5 +104,12 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-__all__ = ["load", "BUILD_DIR", "find_nvcc", "BUILD_INFO", "NVCC_FLAGS",
-           "CSRC"]
+def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
+    """``load`` every name, all builds started together (one nvcc per
+    source, each in its own thread)."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        return dict(zip(names, pool.map(load, names)))
+
+
+__all__ = ["load", "load_all", "BUILD_DIR", "find_nvcc", "BUILD_INFO",
+           "NVCC_FLAGS", "CSRC"]

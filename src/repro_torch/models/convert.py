@@ -1,0 +1,117 @@
+"""Weights carried between the JAX package and the port, and one seeded
+numpy recipe that both sides can build the same weights from.
+
+``params_from_jax(tree, device=..., dtype=None)`` turns a parameter tree in
+the JAX layout (nested dicts of numpy arrays, as ``jax.tree.map(np.asarray,
+Model(arch).init_params(key))`` gives it) into the port's ``state_dict``:
+keys are the tree's paths joined by ``.``, values keep JAX's dtypes unless
+``dtype`` is given. Load it with ``Model.load_state_dict(sd, strict=True)``
+(``assign=True`` on a ``meta``-device model keeps the given dtypes).
+
+``recipe_params(shapes, seed)`` draws numpy float32 values for every leaf of
+a parameter tree, one stated recipe per leaf, leaves in sorted
+key order from one ``numpy.random.default_rng(seed)``; ``recipe_batch``
+draws tokens and labels the same way. A program without JAX builds the same
+weights and batch as a JAX program given the same tree shapes and seeds.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+def flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """Nested dicts -> {"a.b.c": leaf}."""
+    out: Dict[str, Any] = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, Mapping):
+            out.update(flatten(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """{"a.b.c": leaf} -> nested dicts (the inverse of ``flatten``)."""
+    out: Dict[str, Any] = {}
+    for key, v in flat.items():
+        *path, leaf = key.split(".")
+        node = out
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out
+
+
+def _tensor(a: Any) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":      # ml_dtypes' bfloat16, bit for bit
+        a = a.view(np.int16)
+        return torch.from_numpy(np.require(a, requirements=["C", "W"])
+                                ).view(torch.bfloat16)
+    return torch.from_numpy(np.require(a, requirements=["C", "W"]))
+
+
+def params_from_jax(tree: Mapping[str, Any], *, device,
+                    dtype: Optional[torch.dtype] = None
+                    ) -> Dict[str, torch.Tensor]:
+    """The port's ``state_dict`` for a JAX-layout parameter tree."""
+    return {k: _tensor(a).to(device=device, dtype=dtype)
+            for k, a in flatten(tree).items()}
+
+
+def _draw(rng: np.random.Generator, name: str,
+          shape: Sequence[int]) -> np.ndarray:
+    leaf = name.rsplit(".", 1)[-1]
+    shape = tuple(shape)
+    if leaf == "bonus":
+        return 0.5 * rng.standard_normal(shape, dtype=np.float32)
+    if len(shape) >= 2 and leaf not in ("ln_scale", "ln_bias", "decay") \
+            and not leaf.startswith("mix_"):
+        scale = np.float32(1.0 / math.sqrt(shape[-2]))
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+    if leaf == "ln_scale":
+        return 1.0 + 0.1 * rng.standard_normal(shape, dtype=np.float32)
+    if leaf == "ln_bias":
+        return 0.1 * rng.standard_normal(shape, dtype=np.float32)
+    if leaf.startswith("mix_"):
+        return rng.random(shape, dtype=np.float32)
+    if leaf == "decay":
+        return rng.uniform(-6.0, 1.0, shape).astype(np.float32)
+    raise ValueError(f"no recipe for parameter {name!r} of shape {shape}")
+
+
+def recipe_batch(vocab_size: int, batch: int, seq: int,
+                 seed: int) -> Dict[str, np.ndarray]:
+    """A batch dict of int32 ``tokens`` and ``labels`` (batch, seq), drawn
+    uniformly from the vocabulary by ``numpy.random.default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    return {name: rng.integers(0, vocab_size, (batch, seq)).astype(np.int32)
+            for name in ("tokens", "labels")}
+
+
+def recipe_params(shapes: Mapping[str, Sequence[int]],
+                  seed: int) -> Dict[str, np.ndarray]:
+    """{dotted name: shape} -> {dotted name: float32 array}, drawn in sorted
+    name order from ``numpy.random.default_rng(seed)``. By the leaf's name
+    (N a standard normal, U(a, b) uniform, rows = shape[-2]):
+
+      bonus                      0.5 N
+      any other of >= 2 axes     N / sqrt(rows)   (weights, embedding)
+      ln_scale                   1 + 0.1 N
+      ln_bias                    0.1 N
+      mix_*                      U(0, 1)
+      decay                      U(-6, 1)  (multipliers exp(-exp(.)) from
+                                            0.07 to 0.998)
+    """
+    rng = np.random.default_rng(seed)
+    return {name: _draw(rng, name, shapes[name]).astype(np.float32,
+                                                        copy=False)
+            for name in sorted(shapes)}
+
+
+__all__ = ["params_from_jax", "recipe_params", "recipe_batch", "flatten",
+           "nest"]

@@ -5,7 +5,9 @@ fixture below runs around its tests: ``tests/conftest.py`` resets only
 ``repro.obs``, and the port keeps its own telemetry registry.
 """
 import random
+import sys
 
+import numpy as np
 import pytest
 
 #: the tiny shapes of the JAX package's engine tests (name, seq, batch, mode)
@@ -87,3 +89,56 @@ def to_port(v):
     """A ``repro`` Variables as the port's Variables."""
     from repro_torch.core.hdgraph import Variables
     return Variables(v.cuts, v.s_in, v.s_out, v.kern)
+
+
+def lm_sample_points(batch, seq, vocab):
+    """The logits ``lm_record`` keeps: (b, t, v) at the first, second,
+    middle and last positions of row 0 and the last row, for four
+    vocabulary ids."""
+    return [(b, t, v) for b in sorted({0, batch - 1})
+            for t in (0, 1, seq // 2, seq - 1)
+            for v in (0, 1, vocab // 2 - 1, vocab - 1)]
+
+
+def lm_record(arch, *, layers, batch, seq, seed):
+    """The JAX package's float32 loss and sampled logits for the port's
+    seeded numpy recipe (``repro_torch.models.convert``): ``Model(arch,
+    layer_range=(0, layers))`` on the CPU, with parameter shapes from the
+    port's ``Model`` on the meta device. ``chip_smoke.py`` holds the port on
+    the card to this record at full width. The WKV runs in JAX's oracle
+    (``ref.rwkv6``): the recipe's decays go down to 0.07, where the Pallas
+    kernel's within-chunk division underflows over a 128-step chunk and
+    returns NaN (ROADMAP Queue 3)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models.model import Model
+    from repro_torch.models import convert
+    from repro_torch.models.model import Model as PortModel
+
+    shapes = {k: tuple(t.shape) for k, t in PortModel(
+        arch, layer_range=(0, layers), device="meta").state_dict().items()}
+    arrays = convert.recipe_params(shapes, seed)
+    params = jax.tree.map(jnp.asarray, convert.nest(arrays))
+    del arrays
+    data = convert.recipe_batch(arch.vocab_size, batch, seq, seed)
+    jbatch = {k: jnp.asarray(v) for k, v in data.items()}
+    model = Model(arch, layer_range=(0, layers))
+    logits = np.asarray(model.forward(params, jbatch)[0], np.float32)
+    loss = float(model.loss(params, jbatch))
+    return {"loss": loss,
+            "logits": [[b, t, v, float(logits[b, t, v])] for b, t, v in
+                       lm_sample_points(batch, seq, arch.vocab_size)]}
+
+
+if __name__ == "__main__":
+    # The record in chip_smoke.py (LM_RECORD), made on the CPU with:
+    #   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_support.py \
+    #       rwkv6-1.6b 2 1 128 0          # arch, layers, batch, seq, seed
+    import json
+
+    from repro.configs import get_arch
+
+    name, layers, batch, seq, seed = sys.argv[1:6]
+    print(json.dumps(lm_record(get_arch(name), layers=int(layers),
+                               batch=int(batch), seq=int(seq),
+                               seed=int(seed))))

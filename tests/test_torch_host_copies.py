@@ -166,3 +166,171 @@ def test_exporter_plans_agree_and_spec_methods_are_not_ported():
         assert b.dp_axes() == a.dp_axes()
         with pytest.raises(NotImplementedError, match="item 15"):
             b.data_spec()
+
+
+# ----------------------------------------------------------------------
+# the LM layers (models/layers.py, models/model.py)
+# ----------------------------------------------------------------------
+
+#: pieces of the JAX LM modules the port copies verbatim, by file: the
+#: source text of each named top-level statement must match
+LM_VERBATIM = {
+    "models/layers.py": ("PARAM_ROLES",),
+    "models/model.py": ("Segment", "build_segments"),
+}
+
+
+def _top_level_source(path, name):
+    import ast
+    text = path.read_text()
+    for node in ast.parse(text).body:
+        names = {getattr(node, "name", None)}
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) \
+                else [node.target]
+            names |= {getattr(t, "id", None) for t in targets}
+        if name in names:
+            start = min([node.lineno] + [d.lineno for d in getattr(
+                node, "decorator_list", [])])
+            lines = text.splitlines()[start - 1:node.end_lineno]
+            return "\n".join(lines).replace("repro_torch", "repro")
+    raise AssertionError(f"{name} not found in {path}")
+
+
+@pytest.mark.parametrize("rel,name", [(rel, name) for rel, names in
+                                      sorted(LM_VERBATIM.items())
+                                      for name in names])
+def test_lm_verbatim_piece_matches_original(rel, name):
+    assert _top_level_source(SRC / "repro_torch" / rel, name) == \
+        _top_level_source(SRC / "repro" / rel, name)
+
+
+def test_param_roles_and_segments_agree():
+    from repro.models.layers import PARAM_ROLES as R_ROLES
+    from repro.models.model import build_segments as r_segments
+    from repro_torch.configs import ARCHS as T_ARCHS
+    from repro_torch.models.layers import PARAM_ROLES as T_ROLES
+    from repro_torch.models.model import build_segments as t_segments
+    assert R_ROLES == T_ROLES
+    for name in sorted(ARCHS):
+        n = ARCHS[name].num_layers
+        for lr in (None, (0, n), (1, n), (0, max(1, n // 2))):
+            a = r_segments(ARCHS[name], lr)
+            b = t_segments(T_ARCHS[name], lr)
+            assert [dataclasses.astuple(s) for s in a] == \
+                [dataclasses.astuple(s) for s in b], (name, lr)
+
+
+def _jt(a):
+    import jax.numpy as jnp
+    return jnp.asarray(a)
+
+
+def _np32(x):
+    import jax.numpy as jnp
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["rms", "ln"])
+def test_norm_matches_jax(kind, dtype):
+    import jax.numpy as jnp
+    from repro.models import layers as RL
+    from repro_torch.models import layers as TL
+    rng = np.random.default_rng(0)
+    x, scale, bias = (rng.standard_normal(s).astype(np.float32)
+                      for s in ((2, 5, 64), (64,), (64,)))
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    want = RL.apply_norm(_jt(x).astype(jd), _jt(scale).astype(jd),
+                         _jt(bias).astype(jd) if kind == "ln" else None, kind)
+    got = TL.apply_norm(torch.from_numpy(x).to(td),
+                        torch.from_numpy(scale).to(td),
+                        torch.from_numpy(bias).to(td) if kind == "ln"
+                        else None, kind)
+    assert got.dtype == td
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    np.testing.assert_allclose(_np32(got), _np32(want), atol=tol, rtol=tol)
+
+
+def test_rope_and_mrope_match_jax():
+    from repro.models import layers as RL
+    from repro_torch.models import layers as TL
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((2, 6, 3, 16)).astype(np.float32)
+    pos = rng.integers(0, 50, (2, 6)).astype(np.int32)
+    pos3 = rng.integers(0, 50, (3, 2, 6)).astype(np.int32)
+    np.testing.assert_allclose(
+        _np32(TL.apply_rope(torch.from_numpy(x), torch.from_numpy(pos),
+                            1e4)),
+        _np32(RL.apply_rope(_jt(x), _jt(pos), 1e4)), atol=2e-5, rtol=2e-5)
+    np.testing.assert_allclose(
+        _np32(TL.apply_mrope(torch.from_numpy(x), torch.from_numpy(pos3),
+                             1e6)),
+        _np32(RL.apply_mrope(_jt(x), _jt(pos3), 1e6)), atol=2e-5,
+        rtol=2e-5)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "gelu", "relu_sq"])
+def test_ffn_matches_jax_and_init_shapes_agree(act):
+    import jax
+    from repro.models import layers as RL
+    from repro_torch.models import layers as TL
+    jp = RL.init_ffn(jax.random.PRNGKey(0), 32, 48, act, "rms")
+    tp = TL.init_ffn(None, 32, 48, act, "rms", device="meta")
+    assert {k: (tuple(v.shape), str(v.dtype)) for k, v in jp.items()} == \
+        {k: (tuple(v.shape), str(v.dtype).replace("torch.", ""))
+         for k, v in tp.items()}
+    params = {k: np.array(v, np.float32) for k, v in jp.items()}
+    x = np.random.default_rng(2).standard_normal((2, 5, 32)).astype(
+        np.float32)
+    want = RL.apply_ffn(_jt(x), {k: _jt(v) for k, v in params.items()}, act,
+                        "rms")
+    got = TL.apply_ffn(torch.from_numpy(x),
+                       {k: torch.from_numpy(v) for k, v in params.items()},
+                       act, "rms")
+    np.testing.assert_allclose(_np32(got), _np32(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+def test_rwkv_blocks_match_jax(with_state):
+    """Time mix and channel mix, float32, with and without a carried decode
+    state (the state branch takes the oracle with that state)."""
+    import jax
+    from repro.models import rwkv as RR
+    from repro_torch.models import rwkv as TR
+    D, hs, B, S = 64, 16, 2, 7
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((B, S, D)).astype(np.float32)
+    tm = {k: np.array(v, np.float32) for k, v in RR.init_rwkv_tmix(
+        jax.random.PRNGKey(1), D, hs, "ln").items()}
+    cm = {k: np.array(v, np.float32) for k, v in RR.init_rwkv_cmix(
+        jax.random.PRNGKey(2), D, 96, "ln").items()}
+    state_t = state_c = None
+    if with_state:
+        state_t = {"shift": rng.standard_normal((B, D)).astype(np.float32),
+                   "wkv": 0.1 * rng.standard_normal(
+                       (B, D // hs, hs, hs)).astype(np.float32)}
+        state_c = {"shift": rng.standard_normal((B, D)).astype(np.float32)}
+
+    def jx(tree):
+        return None if tree is None else {k: _jt(v) for k, v in tree.items()}
+
+    def tx(tree):
+        return None if tree is None else {k: torch.from_numpy(v)
+                                          for k, v in tree.items()}
+
+    for jf, tf, p, st, kw in (
+            (RR.apply_rwkv_tmix, TR.apply_rwkv_tmix, tm, state_t,
+             {"head_size": hs}),
+            (RR.apply_rwkv_cmix, TR.apply_rwkv_cmix, cm, state_c, {})):
+        want, want_s = jf(_jt(x), jx(p), norm="ln", state=jx(st), **kw)
+        got, got_s = tf(torch.from_numpy(x), tx(p), norm="ln", state=tx(st),
+                        **kw)
+        np.testing.assert_allclose(_np32(got), _np32(want), atol=1e-4,
+                                   rtol=1e-4)
+        assert (got_s is None) == (want_s is None)
+        for k in (want_s or {}):
+            np.testing.assert_allclose(_np32(got_s[k]), _np32(want_s[k]),
+                                       atol=1e-4, rtol=1e-4)

@@ -42,7 +42,11 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "repro_torch.core.accel.search_loops",
                 "repro_torch.core.accel.lowering",
                 "repro_torch.core.optimizers.rule_based",
-                "repro_torch.obs.metrics", "repro_torch.obs.trace"}
+                "repro_torch.obs.metrics", "repro_torch.obs.trace",
+                "repro_torch.kernels.ref", "repro_torch.kernels.ops",
+                "repro_torch.kernels.rwkv6_scan",
+                "repro_torch.models.layers", "repro_torch.models.rwkv",
+                "repro_torch.models.model", "repro_torch.models.convert"}
     assert expected <= set(out["modules"])
     assert out["bad"] == []
 
@@ -85,3 +89,19 @@ def test_resolve_dtype():
     assert resolve_dtype(torch.float64) is torch.float64
     with pytest.raises(ValueError, match="float32 or torch.float64"):
         resolve_dtype(torch.float16)
+
+
+def test_chip_smoke_imports_nothing_of_jax_or_repro():
+    """``chip_smoke.py`` runs where there is no jax: every import in it,
+    at any depth, names neither jax nor the JAX package."""
+    import ast
+    tree = ast.parse((SRC.parent / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    assert "repro_torch.models.model" in names
+    assert not [n for n in names if n.split(".")[0] in ("jax", "jaxlib",
+                                                        "repro")]
