@@ -18,7 +18,13 @@ phase's failure is caught while the run goes on:
               1e-12 in float64) at the mapper's shape and a large one, in
               float32 and float64; wkv6 (1e-4 abs and rel with float32
               r/k/v, 2e-2 with bfloat16) at the JAX kernel test's shapes, a
-              strong-decay case and the LM phase's shape (2, 4096, 32, 64)
+              strong-decay case and the LM phase's shape (2, 4096, 32, 64);
+              flash_attn (2e-5 abs and rel in float32; in bfloat16 2e-2
+              abs and rel and, tighter, one bfloat16 rounding step) on the
+              JAX kernel test's grid (shapes x dtype x causal), the reduced
+              model's head size 32, and the dense LM phase's shape (B=2,
+              S=4096, 32 heads over 4 KV heads of 64, causal) in bfloat16
+              and float32, each timed beside scaled_dot_product_attention
   4. main     ``repro_torch.core.pipeline.optimise_mapping`` on tinyllama-1.1b
               / train_4k / V5E_POD with the rule-based optimiser and the torch
               engine, for two requests; each must equal the port's numpy
@@ -38,11 +44,19 @@ phase's failure is caught while the run goes on:
               with the recurrence summed in float64 (random bfloat16
               weights over 24 layers turn summation order alone into logit
               differences far above a fixed 6e-2, see PERF.md)
+  6. lm-dense ``Model(tinyllama-1.1b, use_flash=True)`` at full width, the
+              same two checks with flash attention in the kernel: (a) 2
+              layers, float32 recipe weights, B=1, T=128, held to the JAX
+              record ``DENSE_RECORD``; (b) all 22 layers in bfloat16 at B=2,
+              T=4096: 22 kernel launches per forward, each held to the plain
+              version (2e-2 and one bfloat16 rounding step), the loss held to the ``attn_impl="ref"`` model
+              (1e-3 relative) and the logits within 1.5 times that model's
+              distance from the same model with attention in float64
 
-  6. profile (only with ``--profile``) the first mapping request and one LM
-              forward once more under ``torch.profiler``: device busy time,
-              kernel count and the kernels that take the most device time,
-              beside the wall time
+  7. profile (only with ``--profile``) the first mapping request and one
+              forward of each LM once more under ``torch.profiler``: device
+              busy time, the idle share, the kernel's share and the kernels
+              that take the most device time, beside the wall time
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Longer records go to
@@ -60,12 +74,13 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 OUT_DIR = ROOT / "chiprun_out"
 
-#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; non-tensor FLOP/s
+#: H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s; FLOP/s for float32
+#: and float64 outside the tensor cores, and bf16 dense on the tensor cores
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 
 #: the hand-written kernels, one source each under src/repro_torch/csrc
-KERNELS = ("segred", "wkv6")
+KERNELS = ("segred", "wkv6", "flash_attn")
 
 #: the JAX package's results for these requests (CPU run of repro's
 #: engine="jax" and engine="numpy", which agree): points, objective,
@@ -114,11 +129,51 @@ LM_RECORD = {
         [0, 127, 65535, 0.2801424264907837],
     ],
 }
-LM_FULL = {"batch": 2, "seq": 4096, "seed": 1, "runs": 3}
+LM_FULL = {"arch": "rwkv6-1.6b", "batch": 2, "seq": 4096, "seed": 1,
+           "runs": 3}
 #: [lm] (b): the kernel forward's logits may lie at most this many times as
 #: far from the plain-WKV forward's as the plain forward's lie from the same
 #: model with its recurrence summed in float64
 LOGIT_YARDSTICK = 1.5
+
+#: flash_attn check shapes (B, Sq, Skv, H, Hkv, dh): tests/test_kernels.py's
+#: FLASH_SHAPES, the reduced model's head size, and [lm-dense] (b)'s shape
+FLASH_SHAPES = ((1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64),
+                (1, 64, 64, 4, 1, 128), (2, 37, 37, 4, 2, 64),
+                (1, 16, 512, 2, 2, 64), (2, 100, 100, 4, 2, 32))
+FLASH_LM_SHAPE = (2, 4096, 4096, 32, 4, 64)
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: in bfloat16 the kernel and its plain version both work in float32 and
+#: round once to bfloat16, so an output may differ from the plain one by one
+#: rounding step (at most 2**-7 of |want|) plus the float32 sums' order
+#: (under 2e-5 of the largest |v|). At S = 4096 the outputs are averages
+#: of thousands of values, so 2e-2 abs is as large as a typical output and
+#: could not see a dropped KV tile; this limit can
+FLASH_BF16_STEP = 2.0 ** -7
+FLASH_BF16_SLACK = 2e-5
+
+#: as LM_RECORD, for tinyllama-1.1b (full width, layers 0-2, float32 recipe
+#: weights, B=1, T=128, seed 0); made on the CPU by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_support.py \
+#:       tinyllama-1.1b 2 1 128 0
+DENSE_RECORD = {
+    "arch": "tinyllama-1.1b", "layers": 2, "batch": 1, "seq": 128, "seed": 0,
+    "loss": 10.815146446228027,
+    "logits": [
+        [0, 0, 0, 0.6712658405303955], [0, 0, 1, 1.1410504579544067],
+        [0, 0, 15999, -1.7576838731765747], [0, 0, 31999, 1.4409105777740479],
+        [0, 1, 0, -0.3859884440898895], [0, 1, 1, 1.9796931743621826],
+        [0, 1, 15999, -0.3091917335987091], [0, 1, 31999, 0.5858257412910461],
+        [0, 64, 0, -0.5660134553909302], [0, 64, 1, 2.839251756668091],
+        [0, 64, 15999, 0.8963364958763123],
+        [0, 64, 31999, -1.3923943042755127],
+        [0, 127, 0, 0.9991924166679382], [0, 127, 1, 1.6598496437072754],
+        [0, 127, 15999, -0.5693889260292053],
+        [0, 127, 31999, 0.41556504368782043],
+    ],
+}
+DENSE_FULL = {"arch": "tinyllama-1.1b", "batch": 2, "seq": 4096, "seed": 1,
+              "runs": 3}
 
 
 def fail(msg: str) -> None:
@@ -335,6 +390,115 @@ def phase_wkv6():
     return rows
 
 
+def _flash_inputs(shape, dtype, seed):
+    """q (B, Sq, H, dh) and k, v (B, Skv, Hkv, dh), standard normal in
+    ``dtype``, drawn on the card from ``seed``."""
+    import torch
+    B, Sq, Skv, H, Hkv, dh = shape
+    g = torch.Generator("cuda").manual_seed(seed)
+    return tuple(torch.randn(s, generator=g, device="cuda").to(dtype)
+                 for s in ((B, Sq, H, dh), (B, Skv, Hkv, dh),
+                           (B, Skv, Hkv, dh)))
+
+
+def _flash_bound(shape, dtype, causal):
+    """The least time for the function on this card: q, k, v read once and
+    the output written once; 4*dh operations (two multiply-adds of q.k and
+    of p.v per head dimension) for each (query, key) pair the mask lets
+    through, at the input type's peak rate (bf16 on the tensor cores).
+    ``cuda_core_ms`` is the same operations at the float32 rate of the CUDA
+    cores the kernel computes on, the most its design can hope for."""
+    import torch
+    B, Sq, Skv, H, Hkv, dh = shape
+    esize = torch.tensor([], dtype=dtype).element_size()
+    nbytes = esize * B * dh * (2 * Sq * H + 2 * Skv * Hkv)
+    pairs = sum(min(i + 1, Skv) for i in range(Sq)) if causal else Sq * Skv
+    ops = 4 * dh * pairs * B * H
+    dname = str(dtype).replace("torch.", "")
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dname] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "cuda_core_ms": ops / PEAK_OPS_PER_S["float32"] * 1e3,
+            "bytes": nbytes, "ops": ops}
+
+
+def _flash_limit_used(got, want, v):
+    """The largest share of its limit any output element uses (<= 1
+    holds): FLASH_TOL abs and rel in float32; in bfloat16 the larger share
+    of 2e-2 abs and rel and of one rounding step (FLASH_BF16_STEP of |want|
+    plus FLASH_BF16_SLACK of max |v|)."""
+    import torch
+    gf, wf = got.float(), want.float()
+    diff, mag = (gf - wf).abs(), wf.abs()
+    dname = str(got.dtype).replace("torch.", "")
+    used = float((diff / (FLASH_TOL[dname] * (1 + mag))).max())
+    if got.dtype == torch.bfloat16:
+        slack = FLASH_BF16_SLACK * max(float(v.float().abs().max()), 1e-30)
+        used = max(used, float((diff / (FLASH_BF16_STEP * mag + slack))
+                               .max()))
+    return used
+
+
+def phase_flash():
+    """flash_attn against its plain version (``ref.attention``) on the JAX
+    kernel test's grid and the dense LM's shape; CUDA-event times of the
+    kernel, the plain version and ``scaled_dot_product_attention`` (one
+    PyTorch call of the same function, timed here only: the port never
+    calls it)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    checks = [(shape, dtype, causal) for shape in FLASH_SHAPES
+              for dtype in (torch.float32, torch.bfloat16)
+              for causal in (True, False)
+              if not (causal and shape[1] != shape[2])]
+    checks += [(FLASH_LM_SHAPE, torch.bfloat16, True),
+               (FLASH_LM_SHAPE, torch.float32, True)]
+    rows = []
+    for i, (shape, dtype, causal) in enumerate(checks):
+        q, k, v = _flash_inputs(shape, dtype, seed=200 + i)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = fa.flash_attention_plain(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        dname = str(dtype).replace("torch.", "")
+        tol = FLASH_TOL[dname]
+        err = float((got.float() - want.float()).abs().max())
+        used = _flash_limit_used(got, want, v)
+        if got.dtype != dtype or not bool(torch.isfinite(got).all()) or \
+                not used <= 1.0:
+            fail(f"flash_attn {dname} {shape} causal={causal}: max abs err "
+                 f"{err:.3g}, {used:.3g} of the limit ({tol} abs and rel"
+                 f"{'' if dname == 'float32' else '; one rounding step'}) "
+                 f"of the plain version")
+        del got, want
+        big = shape[1] >= 1024
+        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
+                     10 if big else 100, warmup=2 if big else 5)
+        plain_ms = cuda_ms(
+            lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+            3 if big else 50, warmup=1 if big else 5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True),
+            10 if big else 100, warmup=2 if big else 5)
+        row = {"shape": list(shape), "dtype": dname, "causal": causal,
+               "max_abs_err": err, "limit_used": used, "ms": ms,
+               "plain_ms": plain_ms,
+               "library_ms": library_ms,
+               **_flash_bound(shape, dtype, causal)}
+        rows.append(row)
+        say("kernels", f"flash_attn {dname} (B,Sq,Skv,H,Hkv,dh)={shape} "
+                       f"causal={causal}: ok, max abs err {err:.3g} ({used:.3g} "
+                       f"of the limit); kernel "
+                       f"{ms:.5f} ms, plain {plain_ms:.5f} ms, sdpa "
+                       f"{library_ms:.5f} ms, bound {row['bound_ms']:.5f} ms "
+                       f"({row['bound_by']}; float32 CUDA cores "
+                       f"{row['cuda_core_ms']:.5f} ms)")
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _history(points):
     return [(int(x), float(y)) for x, y in points]
 
@@ -418,16 +582,16 @@ def _lm_batch(vocab, batch, seq, seed):
     return {k: torch.from_numpy(v).to("cuda") for k, v in data.items()}
 
 
-def _lm_record_check():
+def _lm_record_check(phase, rec, kernel_mod, name):
     """(a) float32 weights from the seeded numpy recipe, the first layers
-    at full width, held to the JAX package's record."""
+    at full width, held to the JAX package's record; ``kernel_mod`` is the
+    wrapper module of kernel ``name`` whose ``LAUNCHES`` the forward must
+    raise, once per layer in the forward and once more in the loss."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import rwkv6_scan
     from repro_torch.models import convert
     from repro_torch.models.model import Model
 
-    rec = LM_RECORD
     arch = get_arch(rec["arch"])
     model = Model(arch, layer_range=(0, rec["layers"]), use_flash=True,
                   device="meta")
@@ -438,26 +602,26 @@ def _lm_record_check():
         device="cuda", dtype=torch.float32), strict=True, assign=True)
     setup_s = time.perf_counter() - t0
     batch = _lm_batch(arch.vocab_size, rec["batch"], rec["seq"], rec["seed"])
-    rwkv6_scan.LAUNCHES = 0
+    kernel_mod.LAUNCHES = 0
     logits, _ = model(batch)
     loss = float(model.loss(batch))
     torch.cuda.synchronize()
-    launches = rwkv6_scan.LAUNCHES
+    launches = kernel_mod.LAUNCHES
     if launches != 2 * rec["layers"]:
-        fail(f"lm (a): {launches} wkv6 launches, expected "
+        fail(f"{phase} (a): {launches} {name} launches, expected "
              f"{2 * rec['layers']} (forward and loss, one per layer)")
     loss_rel = abs(loss - rec["loss"]) / abs(rec["loss"])
     logit_err = max(abs(float(logits[b, t, v]) - want)
                     for b, t, v, want in rec["logits"])
     if not (loss_rel <= 1e-4 and logit_err <= 1e-3):
-        fail(f"lm (a): loss {loss!r} vs JAX record {rec['loss']!r} (rel "
+        fail(f"{phase} (a): loss {loss!r} vs JAX record {rec['loss']!r} (rel "
              f"{loss_rel:.3g}, limit 1e-4); sampled logits off by "
              f"{logit_err:.3g} (limit 1e-3)")
-    say("lm", f"(a) {rec['arch']} layers 0-{rec['layers']} float32, "
-              f"B={rec['batch']} T={rec['seq']}: loss {loss!r} vs JAX "
-              f"record {rec['loss']!r} (rel {loss_rel:.3g}); sampled "
-              f"logits max abs err {logit_err:.3g}; wkv6 launches "
-              f"{launches}; recipe + copy {setup_s:.2f} s")
+    say(phase, f"(a) {rec['arch']} layers 0-{rec['layers']} float32, "
+               f"B={rec['batch']} T={rec['seq']}: loss {loss!r} vs JAX "
+               f"record {rec['loss']!r} (rel {loss_rel:.3g}); sampled "
+               f"logits max abs err {logit_err:.3g}; {name} launches "
+               f"{launches}; recipe + copy {setup_s:.2f} s")
     return {"loss": loss, "loss_rel_err": loss_rel,
             "logit_max_abs_err": logit_err, "launches": launches,
             "setup_s": setup_s}
@@ -480,6 +644,32 @@ def _wkv_float64(r, k, v, w, u):
     return torch.stack(outs, dim=1).to(r.dtype), S
 
 
+def _attention_float64(q, k, v, *, causal=True, q_offset=0):
+    """``ref.attention`` computed in float64 and rounded to q's dtype, one
+    batch row at a time (the full-length score matrix of one row is 4.3 GB
+    in float64 at [lm-dense] (b)'s shape): the same function in a more
+    exact arithmetic."""
+    import math
+
+    import torch
+    B, Sq, H, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    out = torch.empty_like(q)
+    for b in range(B):
+        kd = torch.repeat_interleave(k[b].double(), group, dim=1)
+        vd = torch.repeat_interleave(v[b].double(), group, dim=1)
+        s = torch.einsum("qhd,khd->hqk", q[b].double(), kd) / math.sqrt(dh)
+        if causal:
+            qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+            kpos = torch.arange(Skv, device=q.device)[None, :]
+            s = s.masked_fill(~(kpos <= qpos), -torch.inf)
+        out[b] = torch.einsum("hqk,khd->qhd", torch.softmax(s, dim=-1),
+                              vd).to(q.dtype)
+        del kd, vd, s
+    return out
+
+
 def _logit_gap(a, b):
     """Max abs difference of two logits tensors, and the share of logits
     beyond 6e-2 abs and rel of ``b``."""
@@ -489,22 +679,35 @@ def _logit_gap(a, b):
                                     .float().mean())
 
 
-def phase_lm():
-    """(a), then (b): the full model in bfloat16 at T=4096 through the
-    kernel, timed; every one of its kernel launches held to the plain
-    version on the same inputs; its loss held to the same model with the
-    plain WKV; its logits held to that model's, within 1.5 times that
-    model's distance from the same model with a float64 recurrence."""
+def _within(tol):
+    """``limit_used`` of ``_lm_full`` for ``tol`` abs and rel."""
+    def used(got, want, args):
+        wf = want.float()
+        return float(((got.float() - wf).abs() / (tol + tol * wf.abs()))
+                     .max())
+    return used
+
+
+def _lm_full(phase, cfg, kernel_mod, entry, plain, oracle, oracle64,
+             limit_used, limit_text, name):
+    """(b): the full model in bfloat16 through the kernel, timed; every one
+    of its kernel launches held to the plain version on the same inputs;
+    its loss held to the same model with the plain oracle; its logits held
+    to that model's, within LOGIT_YARDSTICK times that model's distance
+    from the same model with the oracle ``ref.<oracle>`` replaced by
+    ``oracle64`` (float64 arithmetic). ``kernel_mod.<entry>`` is the
+    wrapper of kernel ``name`` that the model calls and ``plain`` its plain
+    version; ``limit_used(got, want, args)`` is the largest share of the
+    per-launch limit (``limit_text``) an output element uses."""
     import torch
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import ref, rwkv6_scan
+    from repro_torch.kernels import ref
     from repro_torch.models.model import Model
 
-    record = _lm_record_check()
-    torch.cuda.empty_cache()
-
-    cfg = LM_FULL
-    arch = get_arch("rwkv6-1.6b")
+    arch = get_arch(cfg["arch"])
+    # what earlier phases keep on the card (the other LM, kept for the
+    # profile) is not this forward's memory
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = Model(arch, use_flash=True, device="cuda",
                   generator=torch.Generator("cuda").manual_seed(cfg["seed"]))
@@ -518,76 +721,73 @@ def phase_lm():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     walls = []
-    rwkv6_scan.LAUNCHES = 0
+    kernel_mod.LAUNCHES = 0
     for _ in range(cfg["runs"]):
         t0 = time.perf_counter()
         model(batch)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    launches = rwkv6_scan.LAUNCHES
-    peak = torch.cuda.max_memory_allocated()
+    launches = kernel_mod.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() - base
     per_forward = launches / cfg["runs"]
     if per_forward != arch.num_layers:
-        fail(f"lm (b): {per_forward} wkv6 launches per forward, expected "
-             f"{arch.num_layers}")
+        fail(f"{phase} (b): {per_forward} {name} launches per forward, "
+             f"expected {arch.num_layers}")
 
     # one more forward, each launch held to the plain version on its inputs
-    kernel_call, layer_errs = rwkv6_scan.wkv6, []
-    tol = WKV_TOL["bfloat16"]
+    kernel_call, layer_errs = getattr(kernel_mod, entry), []
 
-    def held(*args):
-        out = kernel_call(*args)
-        want = rwkv6_scan.wkv6_plain(*args).float()
+    def held(*args, **kw):
+        out = kernel_call(*args, **kw)
         # the largest share of the limit any element uses (<= 1 holds)
-        used = (out.float() - want).abs() / (tol + tol * want.abs())
-        layer_errs.append(float(used.max()))
+        layer_errs.append(limit_used(out, plain(*args, **kw), args))
         return out
 
-    rwkv6_scan.wkv6 = held
+    setattr(kernel_mod, entry, held)
     try:
         logits, _ = model(batch)
     finally:
-        rwkv6_scan.wkv6 = kernel_call
+        setattr(kernel_mod, entry, kernel_call)
     if len(layer_errs) != arch.num_layers or max(layer_errs) > 1.0:
-        fail(f"lm (b): in-model wkv6 launches against the plain version use "
-             f"{layer_errs} of the limit ({tol} abs and rel)")
+        fail(f"{phase} (b): in-model {name} launches against the plain "
+             f"version use {layer_errs} of the limit ({limit_text})")
     loss = float(model.loss(batch))
 
-    plain = Model(arch, use_flash=False, device="meta")
-    plain.load_state_dict(model.state_dict(), strict=True, assign=True)
-    rwkv6_scan.LAUNCHES = 0
+    plain_model = Model(arch, use_flash=False, device="meta")
+    plain_model.load_state_dict(model.state_dict(), strict=True, assign=True)
+    kernel_mod.LAUNCHES = 0
     t0 = time.perf_counter()
-    want, _ = plain(batch)
+    want, _ = plain_model(batch)
     torch.cuda.synchronize()
     plain_wall = time.perf_counter() - t0
-    want_loss = float(plain.loss(batch))
-    oracle = ref.rwkv6
-    ref.rwkv6 = _wkv_float64
+    want_loss = float(plain_model.loss(batch))
+    kept = getattr(ref, oracle)
+    setattr(ref, oracle, oracle64)
     try:
-        exact, _ = plain(batch)
+        exact, _ = plain_model(batch)
     finally:
-        ref.rwkv6 = oracle
-    if rwkv6_scan.LAUNCHES:
-        fail("lm (b): the plain-WKV model launched the kernel")
+        setattr(ref, oracle, kept)
+    if kernel_mod.LAUNCHES:
+        fail(f"{phase} (b): the plain-{oracle} model launched the kernel")
     loss_rel = abs(loss - want_loss) / abs(want_loss)
     finite = bool(torch.isfinite(logits.float()).all()) and loss == loss
     if logits.shape != (cfg["batch"], cfg["seq"], arch.vocab_size) or \
             not finite or loss_rel > 1e-3:
-        fail(f"lm (b): logits {tuple(logits.shape)} finite={finite}; loss "
-             f"{loss!r} vs plain-WKV {want_loss!r} (rel {loss_rel:.3g}, "
-             f"limit 1e-3)")
+        fail(f"{phase} (b): logits {tuple(logits.shape)} finite={finite}; "
+             f"loss {loss!r} vs plain-{oracle} {want_loss!r} (rel "
+             f"{loss_rel:.3g}, limit 1e-3)")
     gaps = {"kernel_vs_plain": _logit_gap(logits, want),
             "plain_vs_float64": _logit_gap(want, exact),
             "kernel_vs_float64": _logit_gap(logits, exact)}
-    # the yardstick: how far summation order alone moves these logits
+    # the yardstick: how far a more exact arithmetic alone moves these logits
     logit_limit = LOGIT_YARDSTICK * gaps["plain_vs_float64"][0]
     if not gaps["kernel_vs_plain"][0] <= logit_limit:
-        fail(f"lm (b): logits {gaps['kernel_vs_plain'][0]:.3g} from the "
-             f"plain-WKV forward's, beyond {LOGIT_YARDSTICK} times the "
-             f"plain forward's distance from its float64 recurrence "
+        fail(f"{phase} (b): logits {gaps['kernel_vs_plain'][0]:.3g} from the "
+             f"plain-{oracle} forward's, beyond {LOGIT_YARDSTICK} times the "
+             f"plain forward's distance from its float64 {oracle} "
              f"({gaps['plain_vs_float64'][0]:.3g})")
     mean_wall = sum(walls) / len(walls)
-    out = {"record": record, "params": n_params, "init_s": init_s,
+    out = {"arch": cfg["arch"], "params": n_params, "init_s": init_s,
            "batch": cfg["batch"], "seq": cfg["seq"], "walls_s": walls,
            "tokens_per_s": tokens / mean_wall, "launches": launches,
            "launches_per_forward": per_forward, "peak_bytes": peak,
@@ -595,25 +795,62 @@ def phase_lm():
            "loss": loss, "plain_loss": want_loss, "loss_rel_err": loss_rel,
            "logit_gaps": gaps, "logit_limit": logit_limit,
            "plain_wall_s": plain_wall}
-    say("lm", f"(b) rwkv6-1.6b, {arch.num_layers} layers, {n_params} "
-              f"parameters bfloat16 (drawn on the card in {init_s:.2f} s), "
-              f"B={cfg['batch']} T={cfg['seq']}: wall per forward "
-              f"{', '.join(f'{w:.4f}' for w in walls)} s, "
-              f"{out['tokens_per_s']:.0f} tokens/s; wkv6 launches "
-              f"{launches} in {cfg['runs']} forwards ({per_forward:.0f} per "
-              f"forward); peak memory {peak / 2**30:.2f} GiB")
-    say("lm", f"(b) each of the {len(layer_errs)} in-model wkv6 launches "
-              f"holds its plain version on the same inputs, using at most "
-              f"{max(layer_errs):.3g} of the limit ({tol} abs and rel); "
-              f"loss {loss!r} vs plain-WKV forward {want_loss!r} "
-              f"(rel {loss_rel:.3g}, limit 1e-3; plain forward "
-              f"{plain_wall:.2f} s)")
-    say("lm", "(b) logits, max abs diff / share beyond 6e-2 abs and rel: " +
+    say(phase, f"(b) {cfg['arch']}, {arch.num_layers} layers, {n_params} "
+               f"parameters bfloat16 (drawn on the card in {init_s:.2f} s), "
+               f"B={cfg['batch']} T={cfg['seq']}: wall per forward "
+               f"{', '.join(f'{w:.4f}' for w in walls)} s, "
+               f"{out['tokens_per_s']:.0f} tokens/s; {name} launches "
+               f"{launches} in {cfg['runs']} forwards ({per_forward:.0f} per "
+               f"forward); peak memory {peak / 2**30:.2f} GiB (weights "
+               f"included)")
+    say(phase, f"(b) each of the {len(layer_errs)} in-model {name} launches "
+               f"holds its plain version on the same inputs, using at most "
+               f"{max(layer_errs):.3g} of the limit ({limit_text}); "
+               f"loss {loss!r} vs plain-{oracle} forward {want_loss!r} "
+               f"(rel {loss_rel:.3g}, limit 1e-3; plain forward "
+               f"{plain_wall:.2f} s)")
+    say(phase, "(b) logits, max abs diff / share beyond 6e-2 abs and rel: " +
         "; ".join(f"{k.replace('_', ' ')} {v[0]:.3g} / {v[1]:.3g}"
                   for k, v in gaps.items()) +
         f"; kernel vs plain held within {logit_limit:.3g} "
         f"({LOGIT_YARDSTICK} x plain vs float64)")
-    del plain, want, exact
+    del plain_model, want, exact
+    return model, batch, out
+
+
+def phase_lm():
+    """rwkv6-1.6b: (a) against the JAX record, (b) the full model with the
+    WKV kernel, held to the plain-WKV model and a float64 recurrence."""
+    import torch
+    from repro_torch.kernels import rwkv6_scan
+    record = _lm_record_check("lm", LM_RECORD, rwkv6_scan, "wkv6")
+    torch.cuda.empty_cache()
+    model, batch, out = _lm_full("lm", LM_FULL, rwkv6_scan, "wkv6",
+                                 rwkv6_scan.wkv6_plain, "rwkv6",
+                                 _wkv_float64, _within(WKV_TOL["bfloat16"]),
+                                 f"{WKV_TOL['bfloat16']} abs and rel", "wkv6")
+    out["record"] = record
+    torch.cuda.empty_cache()
+    return model, batch, out
+
+
+def phase_lm_dense():
+    """tinyllama-1.1b: (a) against the JAX record, (b) the full model with
+    flash attention in the kernel, held to the ``attn_impl="ref"`` model
+    and to attention in float64."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    record = _lm_record_check("lm-dense", DENSE_RECORD, fa, "flash_attn")
+    torch.cuda.empty_cache()
+    model, batch, out = _lm_full("lm-dense", DENSE_FULL, fa,
+                                 "flash_attention", fa.flash_attention_plain,
+                                 "attention", _attention_float64,
+                                 lambda got, want, args: _flash_limit_used(
+                                     got, want, args[2]),
+                                 f"{FLASH_TOL['bfloat16']} abs and rel; one "
+                                 f"bfloat16 rounding step", "flash_attn")
+    out["record"] = record
+    torch.cuda.empty_cache()
     return model, batch, out
 
 
@@ -642,9 +879,10 @@ def _top(by_name, n=8):
             for k, v in top]
 
 
-def phase_profile_lm(model, batch, lm):
-    """One LM forward under torch.profiler: device busy time, the WKV
-    kernel's share of it, and the top kernels."""
+def phase_profile_lm(phase, model, batch, lm, kernel):
+    """One LM forward under torch.profiler: device busy time, the idle
+    share, the share of the kernel whose name holds ``kernel``, and the top
+    kernels."""
     wall, dev, by_name = _profile(lambda: model(batch))
     device_s = sum(tot for tot, _ in by_name.values()) * 1e-6
     plain_wall = min(lm["walls_s"])
@@ -653,18 +891,20 @@ def phase_profile_lm(model, batch, lm):
            "idle_share": (1.0 - device_s / plain_wall) if dev else None,
            "top": _top(by_name)}
     if not dev:
-        say("profile", "lm: the profiler traced no device activity: device "
-                       "time not measured")
+        say("profile", f"{phase}: the profiler traced no device activity: "
+                       f"device time not measured")
         return out
-    wkv = [v for k, v in by_name.items() if "wkv6_kernel" in k]
-    out["wkv6_device_s"] = sum(v[0] for v in wkv) * 1e-6
-    out["wkv6_events"] = sum(v[1] for v in wkv)
-    out["wkv6_share"] = out["wkv6_device_s"] / device_s
-    say("profile", f"lm forward: {len(dev)} device events, device busy "
+    hits = [v for k, v in by_name.items() if kernel in k]
+    out["kernel"] = kernel
+    out["kernel_device_s"] = sum(v[0] for v in hits) * 1e-6
+    out["kernel_events"] = sum(v[1] for v in hits)
+    out["kernel_share"] = out["kernel_device_s"] / device_s
+    say("profile", f"{phase} forward: {len(dev)} device events, device busy "
                    f"{device_s:.4f} s of {plain_wall:.4f} s wall (idle share "
-                   f"{out['idle_share']:.4f}); wkv6 kernel "
-                   f"{out['wkv6_device_s']:.5f} s in {out['wkv6_events']} "
-                   f"launches = {out['wkv6_share']:.4f} of device time")
+                   f"{out['idle_share']:.4f}); {kernel} "
+                   f"{out['kernel_device_s']:.5f} s in "
+                   f"{out['kernel_events']} launches = "
+                   f"{out['kernel_share']:.4f} of device time")
     for row in out["top"]:
         say("profile", f"  {row['device_s']:.5f} s  x{row['count']}  "
                        f"{row['name']}")
@@ -720,17 +960,26 @@ def main() -> None:
     build = phase_build()
     rows = phase_kernels()
     wkv_rows = phase_wkv6()
+    flash_rows = phase_flash()
     runs, launches = phase_main()
     model, batch, lm = phase_lm()
+    dense_model, dense_batch, dense = phase_lm_dense()
     profiled = None
     if "--profile" in sys.argv[1:]:
         profiled = {"mapping": phase_profile(runs),
-                    "lm": phase_profile_lm(model, batch, lm)}
+                    "lm": phase_profile_lm("lm", model, batch, lm,
+                                           "wkv6_kernel"),
+                    "lm-dense": phase_profile_lm("lm-dense", dense_model,
+                                                 dense_batch, dense,
+                                                 "flash_attn_kernel")}
 
     main_row = next(r for r in rows if (r["N"], r["n"]) == SEGRED_SHAPES[0]
                     and r["dtype"] == "float32" and r["op"] == "max")
     lm_row = next(r for r in wkv_rows
                   if tuple(r["shape"]) == WKV_LM_SHAPE)
+    dense_row = next(r for r in flash_rows
+                     if tuple(r["shape"]) == FLASH_LM_SHAPE
+                     and r["dtype"] == "bfloat16")
     kernels = [{
         "name": "segred", "route": "cuda",
         "source": "src/repro_torch/csrc/segred.cu",
@@ -749,6 +998,15 @@ def main() -> None:
         "ms": lm_row["ms"], "plain_ms": lm_row["plain_ms"],
         "bound_ms": lm_row["bound_ms"], "bound_by": lm_row["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "flash_attn", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attn.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:27",
+        "launches": dense["launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+        "ms": dense_row["ms"], "plain_ms": dense_row["plain_ms"],
+        "bound_ms": dense_row["bound_ms"], "bound_by": dense_row["bound_by"],
+        "library_ms": dense_row["library_ms"],
     }]
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps({
@@ -756,8 +1014,8 @@ def main() -> None:
         "torch": torch.__version__, "cuda": torch.version.cuda,
         "build": {name: {k: info[k] for k in ("seconds", "cached", "ptxas")}
                   for name, info in build.items()},
-        "segred": rows, "wkv6": wkv_rows, "main": runs, "lm": lm,
-        "profile": profiled, "kernels": kernels}, indent=1))
+        "segred": rows, "wkv6": wkv_rows, "flash_attn": flash_rows,
+        "main": runs, "lm": lm, "lm_dense": dense, "profile": profiled, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

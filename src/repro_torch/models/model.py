@@ -1,4 +1,5 @@
-"""The LM zoo's model, ported for RWKV6's full-sequence (scoring) forward.
+"""The LM zoo's model, ported for the full-sequence (scoring) forward of
+the dense attention models and RWKV6.
 
 The PyTorch counterpart of the JAX package's ``models/model.py``. A model
 is a chain of *segments*; each segment is a homogeneous stack of
@@ -15,10 +16,15 @@ across key for key (``models/convert.py``). ``forward(batch)`` and
 ``loss(params, batch)`` return, under ``torch.inference_mode()``: there is
 no backward in the port yet.
 
-Ported so far: the ``rwkv_tmix`` / ``rwkv_cmix`` blocks, cache-less. With
-``use_flash=True`` the WKV recurrence runs in the hand-written kernel
-(``csrc/wkv6.cu``), as JAX's ``use_flash`` runs its Pallas kernel. Other
-block kinds, a ``cache`` and ``init_cache`` raise ``NotImplementedError``.
+Ported so far: the ``attn`` / ``ffn`` blocks (rotary self-attention and
+the feed-forward, as dense models such as tinyllama-1.1b chain them) and
+the ``rwkv_tmix`` / ``rwkv_cmix`` blocks, all cache-less. With
+``use_flash=True`` attention runs in the hand-written flash-attention
+kernel (``csrc/flash_attn.cu``) and the WKV recurrence in the WKV kernel
+(``csrc/wkv6.cu``), as JAX's ``use_flash`` runs its Pallas kernels;
+``attn_impl`` picks ``ref``, ``chunked`` or ``flash`` attention directly.
+Other block kinds, a ``cache`` and ``init_cache`` raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -29,6 +35,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import rwkv as R
 from repro_torch.runtime import resolve_device
@@ -104,6 +111,11 @@ def build_segments(arch: ArchConfig,
 
 
 _INIT = {
+    "attn": lambda gen, arch, device: A.init_attention(
+        gen, arch.d_model, arch.num_heads, arch.num_kv_heads, arch.head_dim,
+        arch.norm, device=device),
+    "ffn": lambda gen, arch, device: L.init_ffn(
+        gen, arch.d_model, arch.d_ff, arch.act, arch.norm, device=device),
     "rwkv_tmix": lambda gen, arch, device: R.init_rwkv_tmix(
         gen, arch.d_model, arch.rwkv_head_size, arch.norm, device=device),
     "rwkv_cmix": lambda gen, arch, device: R.init_rwkv_cmix(
@@ -113,9 +125,10 @@ _INIT = {
 
 def _not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: the port runs the RWKV6 blocks' "
-        f"cache-less forward only (ROADMAP Queue 1 item 13: the other block "
-        f"kinds, and RWKV decode with init_cache and a carried state)")
+        f"{what} is not ported yet: the port runs the cache-less forward of "
+        f"the attn, ffn and RWKV6 blocks only (ROADMAP Queue 1 item 13: the "
+        f"moe, ssm, cross_attn and enc_* blocks, and decode with init_cache "
+        f"and a carried cache or state)")
 
 
 def _module(tree: Dict[str, Any]) -> nn.Module:
@@ -236,8 +249,16 @@ class Model(nn.Module):
                 if self.include_embed else None
             x = get_sf("embed")(x, role="boundary")
 
+        B, Sq = x.shape[0], x.shape[1]
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(Sq, dtype=torch.int32,
+                                     device=x.device)[None, :].expand(B, Sq)
+        mrope = batch.get("mrope_positions") if arch.mrope else None
+
         for seg in self.segments:
-            x = self._run_segment(params[seg.name], seg, x, get_sf)
+            x = self._run_segment(params[seg.name], seg, x, positions, mrope,
+                                  get_sf)
 
         if not self.include_head:
             return x, None
@@ -252,20 +273,34 @@ class Model(nn.Module):
         logits = get_sf("head")(logits, role="inner")
         return logits, None
 
-    def _run_segment(self, seg_params, seg: Segment, x, get_sf):
+    def _run_segment(self, seg_params, seg: Segment, x, positions, mrope,
+                     get_sf):
         arch = self.arch
         for i in range(seg.count):
             for j, kind in enumerate(seg.pattern):
                 pk = f"p{j}_{kind}"
                 p = {name: t[i] for name, t in seg_params[pk].items()}
-                if kind == "rwkv_tmix":
+                sfk = get_sf(kind)
+                if kind == "attn":
+                    x, _ = A.attend(
+                        x, p, num_heads=arch.num_heads,
+                        num_kv_heads=arch.num_kv_heads,
+                        head_dim=arch.head_dim, norm=arch.norm, causal=True,
+                        positions=positions, rope_theta=arch.rope_theta,
+                        mrope_positions=mrope, attn_impl=self.attn_impl,
+                        shard_fn=sfk)
+                elif kind == "ffn":
+                    x = L.apply_ffn(x, p, arch.act, arch.norm, shard_fn=sfk)
+                elif kind == "rwkv_tmix":
                     # the sum goes on in float32 to the channel mix
                     x, _ = R.apply_rwkv_tmix(
                         x, p, head_size=arch.rwkv_head_size, norm=arch.norm,
-                        use_kernel=self.use_flash, shard_fn=get_sf(kind))
-                else:
+                        use_kernel=self.use_flash, shard_fn=sfk)
+                elif kind == "rwkv_cmix":
                     x, _ = R.apply_rwkv_cmix(x, p, norm=arch.norm,
-                                             shard_fn=get_sf(kind))
+                                             shard_fn=sfk)
+                else:
+                    raise ValueError(kind)
         return x
 
     # ------------------------------------------------------------------

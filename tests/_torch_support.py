@@ -4,6 +4,7 @@ Each port test module imports ``port_obs_reset`` so that the autouse
 fixture below runs around its tests: ``tests/conftest.py`` resets only
 ``repro.obs``, and the port keeps its own telemetry registry.
 """
+import functools
 import random
 import sys
 
@@ -91,6 +92,85 @@ def to_port(v):
     return Variables(v.cuts, v.s_in, v.s_out, v.kern)
 
 
+@functools.lru_cache(maxsize=None)
+def reduced_jax_tree(name):
+    """Reduced ``name`` (``repro.configs.base.reduced``): the JAX
+    ``init_params(PRNGKey(0))`` tree as numpy (bfloat16 weights)."""
+    import jax
+    from repro.configs import get_arch
+    from repro.configs.base import reduced
+    from repro.models.model import Model
+    tree = Model(reduced(get_arch(name))).init_params(jax.random.PRNGKey(0))
+    return jax.tree.map(np.asarray, tree)
+
+
+def port_model(name, params, dtype=None, **kw):
+    """The port's reduced ``name`` on the CPU holding the JAX-layout
+    ``params`` (``assign=True`` keeps the dtypes of the given tensors, or
+    ``dtype`` when one is given)."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import convert
+    from repro_torch.models.model import Model
+    model = Model(reduced(get_arch(name)), device="meta", **kw)
+    model.load_state_dict(convert.params_from_jax(params, device="cpu",
+                                                  dtype=dtype),
+                          strict=True, assign=True)
+    return model
+
+
+def jax_run(name, params, batch, dtype=None, use_flash=True, **kw):
+    """JAX's reduced ``name``: ``Model(use_flash=use_flash, **kw).forward``
+    logits as float32 numpy, called as JAX's own model tests call it, and
+    the jitted loss when ``batch`` has labels (else None); ``params`` are
+    cast to ``dtype`` when one is given."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_arch
+    from repro.configs.base import reduced
+    from repro.models.model import Model
+    model = Model(reduced(get_arch(name)), use_flash=use_flash, **kw)
+    tree = jax.tree.map(lambda a: jnp.asarray(a, dtype), params)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    logits, _ = model.forward(tree, jb)
+    loss = float(jax.jit(model.loss)(tree, jb)) if "labels" in jb else None
+    return np.asarray(logits.astype(jnp.float32)), loss
+
+
+def layer_range_pair(name, params, cut):
+    """The port's reduced ``name`` split at layer ``cut`` of its single
+    decoder segment ``dec0``: ``Model(layer_range=(0, cut),
+    include_head=False)`` and ``Model(layer_range=(cut, L),
+    include_embed=False)``, holding the JAX-layout ``params``' slices."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.models import convert
+    from repro_torch.models.model import Model
+    arch = reduced(get_arch(name))
+    sd = convert.params_from_jax(params, device="cpu")
+    m1 = Model(arch, layer_range=(0, cut), include_head=False, device="meta")
+    m2 = Model(arch, layer_range=(cut, arch.num_layers), include_embed=False,
+               device="meta")
+    m1.load_state_dict({"embed.table": sd["embed.table"],
+                        **{k: v[:cut] for k, v in sd.items()
+                           if k.startswith("dec0.")}},
+                       strict=True, assign=True)
+    m2.load_state_dict({**{k.replace("dec0.", f"dec{cut}.", 1): v[cut:]
+                           for k, v in sd.items() if k.startswith("dec0.")},
+                        **{k: v for k, v in sd.items()
+                           if k.startswith(("final_norm.", "head."))}},
+                       strict=True, assign=True)
+    return m1, m2
+
+
+def port_run(model, batch):
+    """The port's logits (a tensor) and loss (a float) on the numpy
+    ``batch``; the forward returns no cache."""
+    import torch
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    logits, cache = model(tb)
+    assert cache is None
+    return logits, float(model.loss(tb))
+
+
 def lm_sample_points(batch, seq, vocab):
     """The logits ``lm_record`` keeps: (b, t, v) at the first, second,
     middle and last positions of row 0 and the last row, for four
@@ -105,10 +185,11 @@ def lm_record(arch, *, layers, batch, seq, seed):
     seeded numpy recipe (``repro_torch.models.convert``): ``Model(arch,
     layer_range=(0, layers))`` on the CPU, with parameter shapes from the
     port's ``Model`` on the meta device. ``chip_smoke.py`` holds the port on
-    the card to this record at full width. The WKV runs in JAX's oracle
-    (``ref.rwkv6``): the recipe's decays go down to 0.07, where the Pallas
-    kernel's within-chunk division underflows over a 128-step chunk and
-    returns NaN (ROADMAP Queue 3)."""
+    the card to this record at full width. The model runs JAX's oracles
+    (``use_flash=False``): for RWKV6 the recipe's decays go down to 0.07,
+    where the Pallas WKV kernel's within-chunk division underflows over a
+    128-step chunk and returns NaN (ROADMAP Queue 3); for attention the
+    oracle and the Pallas kernel agree to about 5e-6 in float32."""
     import jax
     import jax.numpy as jnp
     from repro.models.model import Model
@@ -131,9 +212,12 @@ def lm_record(arch, *, layers, batch, seq, seed):
 
 
 if __name__ == "__main__":
-    # The record in chip_smoke.py (LM_RECORD), made on the CPU with:
+    # The records in chip_smoke.py (LM_RECORD, DENSE_RECORD), made on the
+    # CPU with:
     #   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_support.py \
     #       rwkv6-1.6b 2 1 128 0          # arch, layers, batch, seq, seed
+    #   JAX_PLATFORMS=cpu PYTHONPATH=src python tests/_torch_support.py \
+    #       tinyllama-1.1b 2 1 128 0
     import json
 
     from repro.configs import get_arch

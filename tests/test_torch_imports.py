@@ -45,7 +45,9 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "repro_torch.obs.metrics", "repro_torch.obs.trace",
                 "repro_torch.kernels.ref", "repro_torch.kernels.ops",
                 "repro_torch.kernels.rwkv6_scan",
+                "repro_torch.kernels.flash_attention",
                 "repro_torch.models.layers", "repro_torch.models.rwkv",
+                "repro_torch.models.attention",
                 "repro_torch.models.model", "repro_torch.models.convert"}
     assert expected <= set(out["modules"])
     assert out["bad"] == []

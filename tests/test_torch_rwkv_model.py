@@ -2,7 +2,11 @@
 ``Model(arch, use_flash=True)`` (its Pallas WKV kernel in interpret mode) on
 reduced ``rwkv6-1.6b``, with the JAX parameters carried across by
 ``params_from_jax``; layer-range composition; the full-width parameter tree;
-the seeded numpy recipe the card run uses; and what the slice leaves out."""
+the seeded numpy recipe the card run uses; and what the port leaves out.
+
+The bfloat16 logits rule holds for both LM families the port runs, so its
+one parametrised test (``test_bfloat16_logits_within_reference_spread``)
+covers reduced ``rwkv6-1.6b`` and reduced ``tinyllama-1.1b`` here."""
 import dataclasses
 
 import numpy as np
@@ -13,7 +17,9 @@ jax = pytest.importorskip("jax")  # the reference; JAX_PLATFORMS=cpu
 
 import jax.numpy as jnp  # noqa: E402
 
-from _torch_support import lm_record, lm_sample_points  # noqa: E402
+from _torch_support import (jax_run, layer_range_pair,  # noqa: E402
+                            lm_record, lm_sample_points,
+                            port_model, port_run, reduced_jax_tree)
 from _torch_support import port_obs_reset  # noqa: E402,F401
 from repro.configs import get_arch as r_arch  # noqa: E402
 from repro.configs.base import reduced as r_reduced  # noqa: E402
@@ -29,19 +35,11 @@ NAME = "rwkv6-1.6b"
 def jax_params():
     """Reduced rwkv6-1.6b (4 layers, d_model 128, head size 32): the JAX
     ``init_params`` tree as numpy (bfloat16 weights)."""
-    tree = JaxModel(r_reduced(r_arch(NAME))).init_params(
-        jax.random.PRNGKey(0))
-    return jax.tree.map(np.asarray, tree)
+    return reduced_jax_tree(NAME)
 
 
 def _port(params, dtype=None, **kw):
-    """The port's reduced model holding ``params`` (``assign=True`` keeps
-    the dtypes of the given tensors)."""
-    model = Model(reduced(get_arch(NAME)), device="meta", **kw)
-    model.load_state_dict(convert.params_from_jax(params, device="cpu",
-                                                  dtype=dtype),
-                          strict=True, assign=True)
-    return model
+    return port_model(NAME, params, dtype, **kw)
 
 
 def _batch(S, seed=0):
@@ -50,45 +48,47 @@ def _batch(S, seed=0):
 
 
 def _jax_run(params, batch, dtype=None):
-    """JAX's logits (as float32), from ``forward`` called as JAX's own model
-    tests call it, and its loss."""
-    model = JaxModel(r_reduced(r_arch(NAME)), use_flash=True)
-    tree = jax.tree.map(lambda a: jnp.asarray(a, dtype), params)
-    jb = {k: jnp.asarray(v) for k, v in batch.items()}
-    logits, _ = model.forward(tree, jb)
-    return (np.asarray(logits.astype(jnp.float32)),
-            float(jax.jit(model.loss)(tree, jb)))
-
-
-def _port_run(model, batch):
-    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    logits, cache = model(tb)
-    assert cache is None
-    return logits, float(model.loss(tb))
+    return jax_run(NAME, params, batch, dtype)
 
 
 @pytest.mark.parametrize("S", [16, 100])
 def test_float32_forward_and_loss_match_jax(jax_params, S):
     batch = _batch(S)
     want, want_loss = _jax_run(jax_params, batch, jnp.float32)
-    logits, loss = _port_run(_port(jax_params, torch.float32,
-                                   use_flash=True), batch)
+    logits, loss = port_run(_port(jax_params, torch.float32,
+                                  use_flash=True), batch)
     assert logits.dtype == torch.float32
     np.testing.assert_allclose(logits.numpy(), want, atol=1e-4, rtol=1e-4)
     assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
 
 
 @pytest.mark.parametrize("S", [16, 100])
-def test_bfloat16_forward_and_loss_match_jax(jax_params, S):
-    """JAX's own bound between its attention paths in bfloat16
-    (tests/test_models.py::test_attn_impls_agree)."""
-    batch = _batch(S)
-    want, want_loss = _jax_run(jax_params, batch)
-    logits, loss = _port_run(_port(jax_params, use_flash=True), batch)
+@pytest.mark.parametrize("name", ["rwkv6-1.6b", "tinyllama-1.1b"])
+def test_bfloat16_logits_within_reference_spread(name, S):
+    """Each bfloat16 logit of the port lies within max(6e-2 + 6e-2 |want|,
+    spread) of JAX's forward (``want``). ``spread`` is the largest distance
+    between that forward (the layer loop compiled, some bfloat16 sums kept
+    unrounded by XLA) and the same forward run op by op under
+    ``jax.disable_jit`` (every bfloat16 result rounded): a random bfloat16
+    model turns single rounding flips into logit differences, and at S=100
+    the reference's own spread exceeds 6e-2."""
+    tree = reduced_jax_tree(name)
+    batch = convert.recipe_batch(reduced(get_arch(name)).vocab_size, 2, S, 0)
+    tokens = {"tokens": batch["tokens"]}
+    want, _ = jax_run(name, tree, tokens)
+    with jax.disable_jit():
+        eager, _ = jax_run(name, tree, tokens)
+    spread = float(np.abs(eager - want).max())
+
+    logits, loss = port_run(port_model(name, tree, use_flash=True), batch)
     assert logits.dtype == torch.bfloat16
-    np.testing.assert_allclose(logits.float().numpy(), want,
-                               atol=6e-2, rtol=6e-2)
+    assert spread > 0
     assert np.isfinite(loss)
+    bound = np.maximum(6e-2 + 6e-2 * np.abs(want), spread)
+    diff = np.abs(logits.float().numpy() - want)
+    assert (diff <= bound).all(), (
+        f"{int((diff > bound).sum())} logits beyond the bound; max diff "
+        f"{diff.max():.4g}, spread {spread:.4g}")
 
 
 def test_kernel_route_equals_oracle_route_on_cpu(jax_params):
@@ -105,27 +105,15 @@ def test_loss_mask_matches_jax(jax_params):
     batch["loss_mask"] = (np.random.default_rng(4).random((2, 16))
                           < 0.5).astype(np.float32)
     _, want_loss = _jax_run(jax_params, batch, jnp.float32)
-    _, loss = _port_run(_port(jax_params, torch.float32), batch)
+    _, loss = port_run(_port(jax_params, torch.float32), batch)
     assert abs(loss - want_loss) <= 1e-5 * abs(want_loss)
 
 
 def test_layer_range_partitions_compose(jax_params):
     """Partition models run back to back == the whole model (the
     weight-streaming contract of tests/test_models.py)."""
-    arch = reduced(get_arch(NAME))
-    sd = convert.params_from_jax(jax_params, device="cpu")
     whole = _port(jax_params)
-    m1 = Model(arch, layer_range=(0, 2), include_head=False, device="meta")
-    m2 = Model(arch, layer_range=(2, 4), include_embed=False, device="meta")
-    m1.load_state_dict({"embed.table": sd["embed.table"],
-                        **{k: v[:2] for k, v in sd.items()
-                           if k.startswith("dec0.")}},
-                       strict=True, assign=True)
-    m2.load_state_dict({**{k.replace("dec0.", "dec2.", 1): v[2:]
-                           for k, v in sd.items() if k.startswith("dec0.")},
-                        **{k: v for k, v in sd.items()
-                           if k.startswith(("final_norm.", "head."))}},
-                       strict=True, assign=True)
+    m1, m2 = layer_range_pair(NAME, jax_params, 2)
     batch = {"tokens": torch.from_numpy(_batch(16)["tokens"])}
     h, _ = m1(batch)
     logits2, _ = m2({"tokens": None}, embedded=h)
@@ -235,8 +223,9 @@ def test_recipe_record_reproduces_on_the_port():
 
 
 def test_what_the_slice_leaves_out_raises():
-    with pytest.raises(NotImplementedError, match="'attn'"):
-        Model(reduced(get_arch("tinyllama-1.1b")), device="meta")
+    with pytest.raises(NotImplementedError,
+                       match="'moe'.*ROADMAP Queue 1 item 13"):
+        Model(reduced(get_arch("granite-moe-1b-a400m")), device="meta")
     model = Model(reduced(get_arch(NAME)), device="meta")
     with pytest.raises(NotImplementedError, match="decode cache"):
         model({"tokens": torch.zeros(1, 4, dtype=torch.int64)}, cache={})
