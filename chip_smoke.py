@@ -10,21 +10,24 @@ phase's failure is caught while the run goes on:
   2. build    the hand-written kernels, built from ``src/repro_torch/csrc``
               with nvcc for sm_90a, one nvcc per source, all started
               together (a later run reuses the libraries and says so);
-              build seconds and ptxas's register / shared-memory report
+              build seconds and ptxas's register / shared-memory / spill
+              report (a spill store in the tensor-core flash kernel fails)
   3. kernels  each kernel held against its plain PyTorch version on the card,
               with CUDA-event times beside the plain version's, one PyTorch
               library call's (where one exists) and the bound:
               segred (max bitwise, sum within 1e-6 relative in float32 and
               1e-12 in float64) at the mapper's shape and a large one, in
               float32 and float64; wkv6 (1e-4 abs and rel with float32
-              r/k/v, 2e-2 with bfloat16) at the JAX kernel test's shapes, a
-              strong-decay case and the LM phase's shape (2, 4096, 32, 64);
-              flash_attn (2e-5 abs and rel in float32; in bfloat16 2e-2
-              abs and rel and, tighter, one bfloat16 rounding step) on the
-              JAX kernel test's grid (shapes x dtype x causal), the reduced
-              model's head size 32, and the dense LM phase's shape (B=2,
-              S=4096, 32 heads over 4 KV heads of 64, causal) in bfloat16
-              and float32, each timed beside scaled_dot_product_attention
+              r/k/v; with bfloat16 2e-2 abs and rel and, tighter, one
+              bfloat16 rounding step) at the JAX kernel test's shapes, a
+              strong-decay case and the LM phase's shape (2, 4096, 32, 64)
+              in both types; flash_attn (2e-5 abs and rel in float32; in
+              bfloat16 2e-2 abs and rel and, tighter, one bfloat16 rounding
+              step) on the JAX kernel test's grid (shapes x dtype x causal),
+              the reduced model's head size 32, two causal multi-tile cases
+              (dh 128 and 32) and the dense LM phase's shape (B=2, S=4096,
+              32 heads over 4 KV heads of 64, causal) in bfloat16 and
+              float32, each timed beside scaled_dot_product_attention
   4. main     ``repro_torch.core.pipeline.optimise_mapping`` on tinyllama-1.1b
               / train_4k / V5E_POD with the rule-based optimiser and the torch
               engine, for two requests; each must equal the port's numpy
@@ -38,12 +41,15 @@ phase's failure is caught while the run goes on:
               seed, B=2, T=4096: wall per forward, tokens/s, WKV launches
               per forward (must be 24) and peak memory; every in-model WKV
               launch held to the plain version on the same inputs (2e-2 abs
-              and rel); the loss held to the same model with the plain WKV
-              (1e-3 relative); the logits held to that model's within 1.5
-              times the distance between that model and the same model
-              with the recurrence summed in float64 (random bfloat16
-              weights over 24 layers turn summation order alone into logit
-              differences far above a fixed 6e-2, see PERF.md)
+              and rel, and one bfloat16 rounding step); the loss held to the
+              same model with the plain WKV (1e-3 relative); the logits held
+              to that model's within 1.5 times the distance between that
+              model and the same model with the recurrence summed in
+              float64 (random bfloat16 weights over 24 layers turn
+              summation order alone into logit differences far above a
+              fixed 6e-2, see PERF.md); (c) the (b) weights in float32, all
+              24 layers: the kernel forward held to the plain-WKV float32
+              forward (logits 1e-3 abs and rel, loss 1e-5 relative)
   6. lm-dense ``Model(tinyllama-1.1b, use_flash=True)`` at full width, the
               same two checks with flash attention in the kernel: (a) 2
               layers, float32 recipe weights, B=1, T=128, held to the JAX
@@ -65,6 +71,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -81,6 +88,8 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 
 #: the hand-written kernels, one source each under src/repro_torch/csrc
 KERNELS = ("segred", "wkv6", "flash_attn")
+#: kernels (by name) whose ptxas report must show no spill stores
+NO_SPILL = "flash_attn_mma_kernel"
 
 #: the JAX package's results for these requests (CPU run of repro's
 #: engine="jax" and engine="numpy", which agree): points, objective,
@@ -105,6 +114,16 @@ WKV_CHECKS = (
 )
 WKV_LM_SHAPE = (2, 4096, 32, 64)
 WKV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: in bfloat16 the kernel and its plain version both sum in float32 and
+#: round once to bfloat16, so an output may differ from the plain one by
+#: one rounding step (BF16_STEP of |want|) plus the float32 sums' order.
+#: On the CPU each order lies within 2.6e-7 max|y| of the same recurrence
+#: in float64 (T up to 2048, w up to 0.95, strong decay too), so the two
+#: lie within about 5e-7 max|y| of each other; the slack
+#: WKV_BF16_SLACK max|want| is four times that
+WKV_BF16_SLACK = 2e-6
+#: one bfloat16 rounding step, relative: 8 significant bits
+BF16_STEP = 2.0 ** -7
 
 #: the JAX package's loss and sampled logits [b, t, v, logit] for the port's
 #: seeded numpy recipe (repro_torch.models.convert, seed 0): rwkv6-1.6b at
@@ -135,6 +154,13 @@ LM_FULL = {"arch": "rwkv6-1.6b", "batch": 2, "seq": 4096, "seed": 1,
 #: far from the plain-WKV forward's as the plain forward's lie from the same
 #: model with its recurrence summed in float64
 LOGIT_YARDSTICK = 1.5
+#: [lm] (c): the (b) weights in float32, the kernel forward against the
+#: plain-WKV forward: logits within this abs and rel, loss within
+#: LM_F32_LOSS_TOL relative. Only the WKV sums' order differs, about 1e-7
+#: of an output, which 24 layers amplify to about 4e-4 in the logits on an
+#: H100 (PERF.md)
+LM_F32_LOGIT_TOL = 1e-3
+LM_F32_LOSS_TOL = 1e-5
 
 #: flash_attn check shapes (B, Sq, Skv, H, Hkv, dh): tests/test_kernels.py's
 #: FLASH_SHAPES, the reduced model's head size, and [lm-dense] (b)'s shape
@@ -142,14 +168,17 @@ FLASH_SHAPES = ((1, 128, 128, 4, 4, 64), (2, 256, 256, 8, 2, 64),
                 (1, 64, 64, 4, 1, 128), (2, 37, 37, 4, 2, 64),
                 (1, 16, 512, 2, 2, 64), (2, 100, 100, 4, 2, 32))
 FLASH_LM_SHAPE = (2, 4096, 4096, 32, 4, 64)
+#: causal multi-tile cases the small grid cannot reach: many 64-key tiles
+#: at dh = 128 (group 8) and at dh = 32 (no grouping)
+FLASH_DEEP_SHAPES = ((1, 2048, 2048, 16, 2, 128), (1, 1024, 1024, 8, 8, 32))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
-#: in bfloat16 the kernel and its plain version both work in float32 and
-#: round once to bfloat16, so an output may differ from the plain one by one
-#: rounding step (at most 2**-7 of |want|) plus the float32 sums' order
-#: (under 2e-5 of the largest |v|). At S = 4096 the outputs are averages
-#: of thousands of values, so 2e-2 abs is as large as a typical output and
-#: could not see a dropped KV tile; this limit can
-FLASH_BF16_STEP = 2.0 ** -7
+#: in bfloat16 the plain version works in float32 and rounds once to
+#: bfloat16, and the kernel carries P as bf16 hi + lo (about 2**-16 of p),
+#: so an output may differ from the plain one by one rounding step
+#: (BF16_STEP of |want|) plus the float32 sums' order (under
+#: FLASH_BF16_SLACK of the largest |v|). At S = 4096 the outputs are
+#: averages of thousands of values, so 2e-2 abs is as large as a typical
+#: output and could not see a dropped KV tile; this limit can
 FLASH_BF16_SLACK = 2e-5
 
 #: as LM_RECORD, for tinyllama-1.1b (full width, layers 0-2, float32 recipe
@@ -230,9 +259,16 @@ def phase_build():
         how = ("reused the library an earlier run built from the same source"
                if info["cached"] else f"nvcc {info['seconds']:.2f} s")
         say("build", f"{name}: {how} -> {info['path']}")
+        function = ""
         for line in info["ptxas"].splitlines():
-            if "ptxas" in line or "Used" in line:
+            if "Function properties for" in line:
+                function = line.rsplit(" ", 1)[-1]
+            if "ptxas" in line or "Used" in line or "spill" in line:
                 say("build", f"  {line.strip()}")
+            spill = re.search(r"(\d+) bytes spill stores", line)
+            # the tensor-core kernel keeps its fragments in registers
+            if spill and int(spill.group(1)) and NO_SPILL in function:
+                fail(f"ptxas spills {spill.group(1)} bytes in {function}")
     say("build", f"all kernels loaded in {wall:.2f} s (builds in parallel)")
     return {name: dict(cuda_build.BUILD_INFO[name]) for name in KERNELS}
 
@@ -353,12 +389,35 @@ def _wkv_bound(shape, dtype):
             "bytes": nbytes, "ops": ops}
 
 
+def _limit_used(got, want, tol, slack):
+    """The largest share of its limit any output element uses (<= 1
+    holds): ``tol`` abs and rel, and in bfloat16 also one rounding step,
+    BF16_STEP of |want| plus the absolute ``slack``."""
+    import torch
+    gf, wf = got.float(), want.float()
+    diff, mag = (gf - wf).abs(), wf.abs()
+    used = float((diff / (tol * (1 + mag))).max())
+    if got.dtype == torch.bfloat16:
+        used = max(used, float((diff / (BF16_STEP * mag + max(slack, 1e-30)))
+                               .max()))
+    return used
+
+
+def _wkv_limit_used(got, want):
+    """``_limit_used`` at WKV_TOL and, in bfloat16, WKV_BF16_SLACK of max
+    |want|."""
+    dname = str(got.dtype).replace("torch.", "")
+    return _limit_used(got, want, WKV_TOL[dname],
+                       WKV_BF16_SLACK * float(want.float().abs().max()))
+
+
 def phase_wkv6():
     import torch
     from repro_torch.kernels import rwkv6_scan
     checks = [(shape, w, dtype) for shape, w in WKV_CHECKS
               for dtype in (torch.float32, torch.bfloat16)]
-    checks.append((WKV_LM_SHAPE, (0.55, 0.95), torch.bfloat16))
+    checks += [(WKV_LM_SHAPE, (0.55, 0.95), torch.bfloat16),
+               (WKV_LM_SHAPE, (0.55, 0.95), torch.float32)]
     rows = []
     for i, (shape, w_range, dtype) in enumerate(checks):
         args = _wkv_inputs(shape, w_range, dtype, seed=100 + i)
@@ -367,24 +426,27 @@ def phase_wkv6():
         torch.cuda.synchronize()
         dname = str(dtype).replace("torch.", "")
         tol = WKV_TOL[dname]
-        gf, wf = got.float(), want.float()
-        diff = (gf - wf).abs()
-        err = float(diff.max())
-        if got.dtype != dtype or not bool(torch.isfinite(gf).all()) or \
-                not bool((diff <= tol + tol * wf.abs()).all()):
+        err = float((got.float() - want.float()).abs().max())
+        used = _wkv_limit_used(got, want)
+        if got.dtype != dtype or not bool(torch.isfinite(got).all()) or \
+                not used <= 1.0:
             fail(f"wkv6 {dname} {shape} w in {w_range}: max abs err {err:.3g}"
-                 f" beyond {tol} abs and rel of the plain version")
+                 f", {used:.3g} of the limit ({tol} abs and rel"
+                 f"{'' if dname == 'float32' else '; one rounding step'}) "
+                 f"of the plain version")
         big = shape[1] >= 1024
         ms = cuda_ms(lambda: rwkv6_scan.wkv6(*args), 20 if big else 200)
         plain_ms = cuda_ms(lambda: rwkv6_scan.wkv6_plain(*args),
                            2 if big else 5, warmup=1)
         row = {"shape": list(shape), "w_range": list(w_range),
-               "dtype": dname, "max_abs_err": err, "ms": ms,
+               "dtype": dname, "max_abs_err": err, "limit_used": used,
+               "ms": ms,
                "plain_ms": plain_ms, "library_ms": None,
                **_wkv_bound(shape, dtype)}
         rows.append(row)
         say("kernels", f"wkv6 {dname} (B,T,H,hs)={shape} w in {w_range}: ok, "
-                       f"max abs err {err:.3g}; kernel {ms:.5f} ms, plain "
+                       f"max abs err {err:.3g} ({used:.3g} of the limit); "
+                       f"kernel {ms:.5f} ms, plain "
                        f"{plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
                        f"({row['bound_by']}); no single library call")
     return rows
@@ -407,7 +469,7 @@ def _flash_bound(shape, dtype, causal):
     of p.v per head dimension) for each (query, key) pair the mask lets
     through, at the input type's peak rate (bf16 on the tensor cores).
     ``cuda_core_ms`` is the same operations at the float32 rate of the CUDA
-    cores the kernel computes on, the most its design can hope for."""
+    cores, the floor of the float32 kernel, which computes there."""
     import torch
     B, Sq, Skv, H, Hkv, dh = shape
     esize = torch.tensor([], dtype=dtype).element_size()
@@ -424,20 +486,11 @@ def _flash_bound(shape, dtype, causal):
 
 
 def _flash_limit_used(got, want, v):
-    """The largest share of its limit any output element uses (<= 1
-    holds): FLASH_TOL abs and rel in float32; in bfloat16 the larger share
-    of 2e-2 abs and rel and of one rounding step (FLASH_BF16_STEP of |want|
-    plus FLASH_BF16_SLACK of max |v|)."""
-    import torch
-    gf, wf = got.float(), want.float()
-    diff, mag = (gf - wf).abs(), wf.abs()
+    """``_limit_used`` at FLASH_TOL and, in bfloat16, FLASH_BF16_SLACK of
+    max |v|."""
     dname = str(got.dtype).replace("torch.", "")
-    used = float((diff / (FLASH_TOL[dname] * (1 + mag))).max())
-    if got.dtype == torch.bfloat16:
-        slack = FLASH_BF16_SLACK * max(float(v.float().abs().max()), 1e-30)
-        used = max(used, float((diff / (FLASH_BF16_STEP * mag + slack))
-                               .max()))
-    return used
+    return _limit_used(got, want, FLASH_TOL[dname],
+                       FLASH_BF16_SLACK * float(v.float().abs().max()))
 
 
 def phase_flash():
@@ -453,6 +506,8 @@ def phase_flash():
               for dtype in (torch.float32, torch.bfloat16)
               for causal in (True, False)
               if not (causal and shape[1] != shape[2])]
+    checks += [(shape, dtype, True) for shape in FLASH_DEEP_SHAPES
+               for dtype in (torch.float32, torch.bfloat16)]
     checks += [(FLASH_LM_SHAPE, torch.bfloat16, True),
                (FLASH_LM_SHAPE, torch.float32, True)]
     rows = []
@@ -679,15 +734,6 @@ def _logit_gap(a, b):
                                     .float().mean())
 
 
-def _within(tol):
-    """``limit_used`` of ``_lm_full`` for ``tol`` abs and rel."""
-    def used(got, want, args):
-        wf = want.float()
-        return float(((got.float() - wf).abs() / (tol + tol * wf.abs()))
-                     .max())
-    return used
-
-
 def _lm_full(phase, cfg, kernel_mod, entry, plain, oracle, oracle64,
              limit_used, limit_text, name):
     """(b): the full model in bfloat16 through the kernel, timed; every one
@@ -818,6 +864,61 @@ def _lm_full(phase, cfg, kernel_mod, entry, plain, oracle, oracle64,
     return model, batch, out
 
 
+def _lm_float32(phase, cfg, model, batch, kernel_mod, name):
+    """(c): the (b) model's weights cast to float32; the whole forward
+    through the kernel against the same forward with the plain version,
+    both in float32: logits within LM_F32_LOGIT_TOL abs and rel, loss
+    within LM_F32_LOSS_TOL relative, one launch per layer."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+
+    arch = get_arch(cfg["arch"])
+    weights = {k: t.float() for k, t in model.state_dict().items()}
+    kernel_model = Model(arch, use_flash=True, device="meta")
+    kernel_model.load_state_dict(weights, strict=True, assign=True)
+    plain_model = Model(arch, use_flash=False, device="meta")
+    plain_model.load_state_dict(weights, strict=True, assign=True)
+    kernel_mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    logits, _ = kernel_model(batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernel_mod.LAUNCHES
+    loss = float(kernel_model.loss(batch))
+    kernel_mod.LAUNCHES = 0
+    t0 = time.perf_counter()
+    want, _ = plain_model(batch)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    want_loss = float(plain_model.loss(batch))
+    if kernel_mod.LAUNCHES:
+        fail(f"{phase} (c): the plain float32 model launched the kernel")
+    diff = (logits - want).abs()
+    used = float((diff / (LM_F32_LOGIT_TOL * (1 + want.abs()))).max())
+    loss_rel = abs(loss - want_loss) / abs(want_loss)
+    if logits.dtype != torch.float32 or launches != arch.num_layers or \
+            not bool(torch.isfinite(logits).all()) or not used <= 1.0 or \
+            not loss_rel <= LM_F32_LOSS_TOL:
+        fail(f"{phase} (c): float32 {logits.dtype}, {launches} {name} "
+             f"launches (expected {arch.num_layers}); logits "
+             f"{float(diff.max()):.3g} from the plain forward's ({used:.3g} "
+             f"of {LM_F32_LOGIT_TOL} abs and rel); loss {loss!r} vs "
+             f"{want_loss!r} (rel {loss_rel:.3g}, limit {LM_F32_LOSS_TOL})")
+    out = {"launches": launches, "logit_max_abs_err": float(diff.max()),
+           "logit_limit_used": used, "loss": loss, "plain_loss": want_loss,
+           "loss_rel_err": loss_rel, "wall_s": wall, "plain_wall_s": plain_wall}
+    say(phase, f"(c) {cfg['arch']}, {arch.num_layers} layers, the (b) weights "
+               f"in float32, B={cfg['batch']} T={cfg['seq']}: logits max abs "
+               f"diff {out['logit_max_abs_err']:.3g} from the plain-{name} "
+               f"float32 forward ({used:.3g} of {LM_F32_LOGIT_TOL} abs and "
+               f"rel); loss {loss!r} vs {want_loss!r} (rel {loss_rel:.3g}, "
+               f"limit {LM_F32_LOSS_TOL}); {launches} {name} launches; wall "
+               f"{wall:.3f} s (plain {plain_wall:.2f} s)")
+    del kernel_model, plain_model, weights, logits, want, diff
+    return out
+
+
 def phase_lm():
     """rwkv6-1.6b: (a) against the JAX record, (b) the full model with the
     WKV kernel, held to the plain-WKV model and a float64 recurrence."""
@@ -827,9 +928,15 @@ def phase_lm():
     torch.cuda.empty_cache()
     model, batch, out = _lm_full("lm", LM_FULL, rwkv6_scan, "wkv6",
                                  rwkv6_scan.wkv6_plain, "rwkv6",
-                                 _wkv_float64, _within(WKV_TOL["bfloat16"]),
-                                 f"{WKV_TOL['bfloat16']} abs and rel", "wkv6")
+                                 _wkv_float64,
+                                 lambda got, want, args: _wkv_limit_used(
+                                     got, want),
+                                 f"{WKV_TOL['bfloat16']} abs and rel; one "
+                                 f"bfloat16 rounding step", "wkv6")
     out["record"] = record
+    torch.cuda.empty_cache()
+    out["float32"] = _lm_float32("lm", LM_FULL, model, batch, rwkv6_scan,
+                                 "wkv6")
     torch.cuda.empty_cache()
     return model, batch, out
 
@@ -971,7 +1078,7 @@ def main() -> None:
                                            "wkv6_kernel"),
                     "lm-dense": phase_profile_lm("lm-dense", dense_model,
                                                  dense_batch, dense,
-                                                 "flash_attn_kernel")}
+                                                 "flash_attn_mma_kernel")}
 
     main_row = next(r for r in rows if (r["N"], r["n"]) == SEGRED_SHAPES[0]
                     and r["dtype"] == "float32" and r["op"] == "max")

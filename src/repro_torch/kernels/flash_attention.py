@@ -11,7 +11,10 @@ masks ragged tails, so nothing is transposed, padded or copied around it.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/flash_attn.cu``, built at first use by ``cuda_build``) on the
-current stream, or raises; there is no fallback. Only a CPU tensor takes
+current stream, or raises; there is no fallback. float32 goes to an exact
+CUDA-core kernel, bfloat16 to a tensor-core kernel (``mma.sync``, float32
+accumulators), which copies 16 bytes at a time and so takes q, k, v that
+start on 16-byte boundaries (fresh tensors do). Only a CPU tensor takes
 the plain version, ``flash_attention_plain``, which is the oracle
 ``ref.attention``. ``LAUNCHES`` counts kernel launches, so a run can show
 that the model went through the kernel.
@@ -79,6 +82,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu tensors, got "
                          f"{q.device}")
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (q, k, v)):
+        raise ValueError("bfloat16 q, k, v must start on 16-byte "
+                         "boundaries (the kernel copies 16 bytes at a time)")
     from repro_torch.core.accel import cuda_build
     fn = getattr(cuda_build.load("flash_attn"), _ENTRY[q.dtype])
     fn.argtypes = _ARGTYPES

@@ -201,14 +201,89 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
 
 def test_kernel_source_exports_what_the_wrapper_calls():
     """The C entry points the wrapper binds, and the head sizes it accepts,
-    are the ones ``csrc/flash_attn.cu`` defines (nvcc does not run
-    here)."""
+    are the ones ``csrc/flash_attn.cu`` defines (nvcc does not run here):
+    float32 goes to the CUDA-core kernel and bfloat16 to the tensor-core
+    kernel, each instantiated for every head size."""
     src = (CSRC / "flash_attn.cu").read_text()
-    for entry in ("flash_attn_f32", "flash_attn_bf16"):
-        assert re.search(rf'extern "C" int {entry}\(', src)
-    cases = {int(c) for c in re.findall(r"case (\d+): return launch_dh", src)}
-    assert cases == set(fa.HEAD_DIMS)
-    assert "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    for entry, launcher in (("flash_attn_f32", "launch_f32"),
+                            ("flash_attn_bf16", "launch_bf16")):
+        assert re.search(rf'extern "C" int {entry}\([^{{]*\{{\s*'
+                         rf'return {launcher}\(', src)
+    f32 = {int(c) for c in re.findall(
+        r"case (\d+): return launch_dh<\1, float>", src)}
+    bf16 = {int(c) for c in re.findall(
+        r"case (\d+): return launch_mma_dh<\1>", src)}
+    assert f32 == bf16 == set(fa.HEAD_DIMS)
+    assert re.search(r"flash_attn_kernel<DH, T><<<", src)
+    assert re.search(r"flash_attn_mma_kernel<DH><<<", src)
+    for op in ("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+               "ldmatrix.sync.aligned.m8n8.x4.shared.b16",
+               "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16",
+               "cp.async.cg.shared.global"):
+        assert op in src
+    assert src.count("cudaFuncAttributeMaxDynamicSharedMemorySize") == 2
+
+
+def _tensor_core_arithmetic(q, k, v, *, causal, split_p, block=64):
+    """The bf16 kernel's arithmetic in plain PyTorch, on the CPU: S in
+    float32 from bf16 q and k (a bf16 product is exact in float32), scaled
+    in float32 into the exp2 domain; the online softmax over ``block``-key
+    tiles with the running max starting at -1e30; l summed from the
+    float32 p; P·V with p as bf16 hi plus bf16 lo (``split_p``) or as one
+    bf16 value, each product against bf16 v summed in float32; the output
+    divided by l and rounded once to bf16."""
+    B, Sq, H, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    group = H // Hkv
+    qf = q.float().transpose(1, 2)                            # (B, H, Sq, dh)
+    kf = torch.repeat_interleave(k.float(), group, 2).transpose(1, 2)
+    vf = torch.repeat_interleave(v.float(), group, 2).transpose(1, 2)
+    scale_log2 = torch.tensor(1.4426950408889634 / dh ** 0.5,
+                              dtype=torch.float32)
+    m = torch.full((B, H, Sq, 1), -1e30)
+    l = torch.zeros((B, H, Sq, 1))
+    acc = torch.zeros((B, H, Sq, dh))
+    qpos = torch.arange(Sq)[:, None]
+    for k0 in range(0, Skv, block):
+        s = (qf @ kf[:, :, k0:k0 + block].transpose(-1, -2)) * scale_log2
+        if causal:
+            kpos = torch.arange(k0, k0 + s.shape[-1])[None, :]
+            s = s.masked_fill(kpos > qpos, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        hi = p.bfloat16().float()
+        parts = (hi, (p - hi).bfloat16().float()) if split_p else (hi,)
+        acc = acc * alpha
+        for part in parts:
+            acc = acc + part @ vf[:, :, k0:k0 + block]
+        m = m_new
+    out = acc / torch.where(l == 0, 1.0, l)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def _step_limit_used(got, want, v):
+    """The largest share of one bfloat16 rounding step, 2**-7 |want| +
+    2e-5 max|v| (chip_smoke.py's bf16 K2 limit), any element uses."""
+    diff, mag = (got.float() - want.float()).abs(), want.float().abs()
+    slack = 2e-5 * float(v.float().abs().max())
+    return float((diff / (2.0 ** -7 * mag + slack)).max())
+
+
+@pytest.mark.parametrize("split_p,holds", [(True, True), (False, False)])
+def test_tensor_core_arithmetic_needs_a_split_p(split_p, holds):
+    """At (1, 1024, 4, 1, 64), causal, bf16: with P as bf16 hi + lo the
+    kernel's arithmetic holds the plain version within one rounding step;
+    with one bf16 P it leaves that limit (each p rounded once more than
+    the plain version rounds it), which is why the kernel splits P."""
+    q, k, v = _torch(_inputs((1, 1024, 1024, 4, 1, 64), seed=16),
+                     "bfloat16")
+    want = fa.flash_attention_plain(q, k, v, causal=True)
+    got = _tensor_core_arithmetic(q, k, v, causal=True, split_p=split_p)
+    assert got.dtype == torch.bfloat16 and bool(torch.isfinite(got).all())
+    used = _step_limit_used(got, want, v)
+    assert (used <= 1.0) == holds, used
 
 
 def _card():
@@ -216,10 +291,14 @@ def _card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
-#: the CPU grid plus the reduced model's dh=32 and a ragged GQA case
+#: the CPU grid plus the reduced model's dh=32, a ragged GQA case and
+#: chip_smoke.py's two causal multi-tile cases (dh 128 and 32)
 CARD_CASES = _grid() + [((2, 100, 100, 4, 2, 32), d, c) for d in DTYPES
                         for c in (True, False)] + [
-    ((3, 77, 77, 8, 2, 64), d, True) for d in DTYPES]
+    (shape, d, True) for shape in ((3, 77, 77, 8, 2, 64),
+                                   (1, 2048, 2048, 16, 2, 128),
+                                   (1, 1024, 1024, 8, 8, 32))
+    for d in DTYPES]
 
 
 @pytest.mark.gpu
@@ -236,8 +315,22 @@ def test_kernel_matches_plain_on_card(shape, dtype, causal):
     tol = _tol(dtype)
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     if dtype == "bfloat16":
-        # both sides work in float32 and round once to bfloat16: at most one
-        # rounding step (2**-7 of |want|) apart, plus float32 sum order
-        diff, mag = (got.float() - want.float()).abs(), want.float().abs()
-        slack = 2e-5 * float(v.float().abs().max())
-        assert bool((diff <= 2.0 ** -7 * mag + slack).all())
+        # the plain version works in float32 and rounds once to bfloat16;
+        # the kernel's P is bf16 hi + lo: at most one rounding step (2**-7
+        # of |want|) apart, plus float32 sum order
+        assert _step_limit_used(got, want, v) <= 1.0
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_refuses_a_misaligned_tensor_on_card():
+    """The bf16 kernel copies 16 bytes at a time: a contiguous view that
+    starts off a 16-byte boundary raises rather than launching."""
+    _card()
+    q, k, v = _torch(_inputs((1, 64, 64, 2, 2, 32)), "bfloat16", "cuda")
+    shifted = torch.empty(q.numel() + 1, dtype=q.dtype, device="cuda")
+    q1 = shifted[1:].view(q.shape)
+    q1.copy_(q)
+    before = fa.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        fa.flash_attention(q1, k, v, causal=True)
+    assert fa.LAUNCHES == before

@@ -226,3 +226,33 @@ def test_kernel_matches_plain_on_card(shape, w_range, dtype):
     assert got.dtype == dtype
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
+    if dtype == torch.bfloat16:
+        _within_one_rounding_step(got, want)
+
+
+def _within_one_rounding_step(got, want):
+    """Both sides sum in float32 and round once to bfloat16: at most one
+    rounding step (2**-7 of |want|) apart, plus the float32 sums' order
+    (each order lies within 2.6e-7 max|y| of a float64 recurrence on the
+    CPU; the slack is 2e-6 max|want|, as chip_smoke.py's)."""
+    diff, mag = (got.float() - want.float()).abs(), want.float().abs()
+    assert bool((diff <= 2.0 ** -7 * mag + 2e-6 * float(mag.max())).all())
+
+
+@pytest.mark.gpu
+def test_kernel_matches_plain_on_card_at_lm_shape():
+    """The [lm] phase's shape (2, 4096, 32, 64): float32 at 1e-4, bfloat16
+    within one rounding step."""
+    _card()
+    args = _inputs(2, 4096, 32, 64, seed=4)
+    for dtype in (torch.float32, torch.bfloat16):
+        r, k, v, w, u = (x.to("cuda") for x in _t(*args))
+        r, k, v = (x.to(dtype) for x in (r, k, v))
+        got = ops.rwkv6(r, k, v, w, u)
+        want = rwkv6_scan.wkv6_plain(r, k, v, w, u)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        else:
+            _within_one_rounding_step(got, want)
