@@ -11,17 +11,27 @@ phase's failure is caught while the run goes on:
               with nvcc for sm_90a, one nvcc per source, all started
               together (a later run reuses the libraries and says so);
               build seconds and ptxas's register / shared-memory / spill
-              report (a spill store in the tensor-core flash kernel fails)
+              report (a spill store in the tensor-core flash kernel or the
+              chunked WKV kernel fails). Built beside them, by the same
+              cached loader from their own sources, as yardsticks timed in
+              phase 3 and never used by the port: segred's first design
+              (``tools/segred_first_design.cu``) and wkv6's step-by-step
+              kernel (``tools/wkv6_step_design.cu``), run for bfloat16
   3. kernels  each kernel held against its plain PyTorch version on the card,
-              with CUDA-event times beside the plain version's, one PyTorch
-              library call's (where one exists) and the bound:
-              segred (max bitwise, sum within 1e-6 relative in float32 and
-              1e-12 in float64) at the mapper's shape and a large one, in
-              float32 and float64; wkv6 (1e-4 abs and rel with float32
-              r/k/v; with bfloat16 2e-2 abs and rel and, tighter, one
-              bfloat16 rounding step) at the JAX kernel test's shapes, a
-              strong-decay case and the LM phase's shape (2, 4096, 32, 64)
-              in both types; flash_attn (2e-5 abs and rel in float32; in
+              with CUDA-event times (the kernel's, one PyTorch library
+              call's where one exists and the earlier design's for segred
+              and bf16 wkv6 as medians of rounds timed in turns) beside the
+              plain version's and the bound:
+              segred (max and sum bitwise, NaN where the plain version has
+              it) at the mapper's shape, a brute-force chunk's and one node
+              a row, in float32 and float64, with rows that are one segment,
+              a segment a node, hold NaN and hold tied maxima; wkv6 (1e-4
+              abs and rel with float32 r/k/v; with bfloat16 2e-2 abs and rel
+              and, tighter, one bfloat16 rounding step; every output
+              finite) at the JAX kernel test's shapes, a strong-decay case,
+              decays with exact zeros and near 1e-30, T = 4097 and the LM
+              phase's shape (2, 4096, 32, 64) in both types; flash_attn
+              (2e-5 abs and rel in float32; in
               bfloat16 2e-2 abs and rel and, tighter, one bfloat16 rounding
               step) on the JAX kernel test's grid (shapes x dtype x causal),
               the reduced model's head size 32, two causal multi-tile cases
@@ -62,7 +72,9 @@ phase's failure is caught while the run goes on:
   7. profile (only with ``--profile``) the first mapping request and one
               forward of each LM once more under ``torch.profiler``: device
               busy time, the idle share, the kernel's share and the kernels
-              that take the most device time, beside the wall time
+              that take the most device time, beside the wall time; and
+              segred's device time a launch beside its first design's, at
+              the mapper's shape and a brute-force chunk's
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Longer records go to
@@ -89,7 +101,10 @@ PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 #: the hand-written kernels, one source each under src/repro_torch/csrc
 KERNELS = ("segred", "wkv6", "flash_attn")
 #: kernels (by name) whose ptxas report must show no spill stores
-NO_SPILL = "flash_attn_mma_kernel"
+NO_SPILL = ("flash_attn_mma_kernel", "wkv6_chunk_kernel")
+#: the earlier designs, timed beside the kernels and never used by the port
+YARDSTICKS = {"segred_first_design": ROOT / "tools" / "segred_first_design.cu",
+              "wkv6_step_design": ROOT / "tools" / "wkv6_step_design.cu"}
 
 #: the JAX package's results for these requests (CPU run of repro's
 #: engine="jax" and engine="numpy", which agree): points, objective,
@@ -103,14 +118,19 @@ REQUESTS = (
      "history": 3},
 )
 
-SEGRED_SHAPES = ((28, 47), (65536, 47))     # main path's, and a large one
+#: the main path's shape, a brute-force chunk's, and one node a row
+SEGRED_SHAPES = ((28, 47), (65536, 47), (64, 1))
 
 #: wkv6 check shapes (B, T, H, hs) and decay ranges: tests/test_kernels.py's
-#: WKV shapes, a strong-decay case, and the [lm] phase's shape
+#: WKV shapes, a strong-decay case, decays with exact zeros and near 1e-30,
+#: a ragged T, the model's own decay (a long memory), and the [lm] phase's
+#: shape
 WKV_CHECKS = (
     ((1, 128, 2, 32), (0.55, 0.95)), ((2, 256, 4, 64), (0.55, 0.95)),
     ((1, 100, 2, 64), (0.55, 0.95)), ((1, 64, 1, 128), (0.55, 0.95)),
-    ((1, 256, 2, 64), (0.02, 0.1)),
+    ((1, 256, 2, 64), (0.02, 0.1)), ((1, 256, 2, 64), "zeros"),
+    ((1, 256, 2, 64), "tiny"), ((1, 4097, 2, 64), (0.55, 0.95)),
+    ((1, 4096, 8, 64), "model"),
 )
 WKV_LM_SHAPE = (2, 4096, 32, 64)
 WKV_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -230,6 +250,18 @@ def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_ms_turns(fns, iters, rounds=5, warmup=5):
+    """The median over ``rounds`` of ``cuda_ms`` for each of ``fns``, timed
+    in turns (fn 0, fn 1, ..., then again), so that a slow stretch of the
+    shared host, which sets the time of a call this small, falls on all of
+    them alike."""
+    times = [[] for _ in fns]
+    for _ in range(rounds):
+        for i, fn in enumerate(fns):
+            times[i].append(cuda_ms(fn, iters, warmup=warmup))
+    return [sorted(t)[len(t) // 2] for t in times]
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -249,12 +281,40 @@ def phase_device():
     return kind, smi_line
 
 
+def _typed(lib, entry, argtypes):
+    """``lib``'s C entry point ``entry``, typed."""
+    import ctypes
+    fn = getattr(lib, entry)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _wkv_step(fn, r, k, v, w, u):
+    """One launch of the step-by-step yardstick's typed entry point."""
+    import torch
+    B, T, H, hs = r.shape
+    out = torch.empty_like(r)
+    if fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+          u.data_ptr(), out.data_ptr(), B, T, H, hs,
+          torch.cuda.current_stream().cuda_stream):
+        fail("the step-by-step wkv6 yardstick did not launch")
+    return out
+
+
 def phase_build():
-    from repro_torch.core.accel import cuda_build
+    from repro_torch.core.accel import cuda_build, segred
+    from repro_torch.kernels import rwkv6_scan
     t0 = time.perf_counter()
-    cuda_build.load_all(KERNELS)
+    libs = cuda_build.load_all(KERNELS + tuple(YARDSTICKS), YARDSTICKS)
     wall = time.perf_counter() - t0
-    for name in KERNELS:
+    yardsticks = {
+        "segred": {str(dt).replace("torch.", ""): _typed(
+            libs["segred_first_design"], entry, segred._ARGTYPES)
+            for dt, entry in segred._ENTRY.items()},
+        "wkv6": _typed(libs["wkv6_step_design"], "wkv6_bf16",
+                       rwkv6_scan._ARGTYPES)}
+    for name in KERNELS + tuple(YARDSTICKS):
         info = cuda_build.BUILD_INFO[name]
         how = ("reused the library an earlier run built from the same source"
                if info["cached"] else f"nvcc {info['seconds']:.2f} s")
@@ -266,17 +326,21 @@ def phase_build():
             if "ptxas" in line or "Used" in line or "spill" in line:
                 say("build", f"  {line.strip()}")
             spill = re.search(r"(\d+) bytes spill stores", line)
-            # the tensor-core kernel keeps its fragments in registers
-            if spill and int(spill.group(1)) and NO_SPILL in function:
+            # the tensor-core kernels keep their fragments in registers
+            if spill and int(spill.group(1)) and name in KERNELS and \
+                    any(k in function for k in NO_SPILL):
                 fail(f"ptxas spills {spill.group(1)} bytes in {function}")
-    say("build", f"all kernels loaded in {wall:.2f} s (builds in parallel)")
-    return {name: dict(cuda_build.BUILD_INFO[name]) for name in KERNELS}
+    say("build", f"all kernels and the two yardsticks loaded in {wall:.2f} s "
+                 f"(builds in parallel)")
+    return ({name: dict(cuda_build.BUILD_INFO[name]) for name in KERNELS},
+            yardsticks)
 
 
 def _segred_inputs(N: int, n: int, dtype, seed: int):
     """Random positive node times and random monotone partition ids; row 0
-    is one segment, row 1 has every node in its own segment, the rest cut
-    with probabilities that vary by row, so most rows leave trailing
+    is one segment, row 1 has every node in its own segment, row 4 holds a
+    NaN and row 5 tied maxima (where the rows and nodes exist), the rest
+    cut with probabilities that vary by row, so most rows leave trailing
     segments empty (they must hold the identity)."""
     import numpy as np
     import torch
@@ -287,13 +351,40 @@ def _segred_inputs(N: int, n: int, dtype, seed: int):
     cuts[0] = False
     if N > 1:
         cuts[1] = True
+    if N > 5 and n > 2:
+        vals[4, n // 2] = np.nan
+        vals[5] = np.round(vals[5] * 4) / 4      # few distinct values: ties
     pid = np.concatenate([np.zeros((N, 1), np.int64),
                           np.cumsum(cuts, axis=1)], axis=1)
     return (torch.from_numpy(vals).to("cuda", dtype),
             torch.from_numpy(pid).to("cuda"))
 
 
-def phase_kernels():
+def _bitwise_equal(got, want):
+    """The same NaN positions, and every other element bit for bit."""
+    import torch
+    nan = torch.isnan(want)
+    ints = torch.int32 if got.dtype == torch.float32 else torch.int64
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got.view(ints)[~nan], want.view(ints)[~nan])
+
+
+def _segred_first(fn, vals, pid, op):
+    """One call of segred's first design (typed entry ``fn``) with the
+    wrapper's host work, so that the two designs' calls differ only in
+    their kernels."""
+    import torch
+    from repro_torch.core.accel import segred
+    segred._check(vals, pid, op)
+    out = torch.empty_like(vals)
+    N, n = vals.shape
+    if fn(vals.data_ptr(), pid.data_ptr(), out.data_ptr(), N, n,
+          segred.OPS[op], torch.cuda.current_stream().cuda_stream):
+        fail("segred's first design did not launch")
+    return out
+
+
+def phase_kernels(yardsticks):
     import torch
     from repro_torch.core.accel import segred
     rows = []
@@ -302,49 +393,45 @@ def phase_kernels():
             vals, pid = _segred_inputs(N, n, dtype, seed=N + n)
             dname = str(dtype).replace("torch.", "")
             esize = vals.element_size()
+            first = yardsticks["segred"][dname]
+
             for op in ("max", "sum"):
                 got = segred.segmented_reduce(vals, pid, op)
                 want = segred.segmented_reduce_plain(vals, pid, op)
                 torch.cuda.synchronize()
-                if op == "max":
-                    if not torch.equal(got, want):
-                        fail(f"segred max {dname} [{N},{n}] not bitwise "
-                             f"equal to the plain version")
-                    rel = 0.0
-                else:
-                    rtol = 1e-6 if dtype == torch.float32 else 1e-12
-                    diff = (got - want).abs()
-                    rel = float(torch.where(want != 0, diff / want.abs(),
-                                            diff).max())
-                    if not bool((diff <= rtol * want.abs()).all()):
-                        fail(f"segred sum {dname} [{N},{n}] off by {rel:.3g} "
-                             f"relative (limit {rtol})")
+                if not _bitwise_equal(got, want):
+                    fail(f"segred {op} {dname} [{N},{n}] not bitwise equal "
+                         f"to the plain version")
                 err = float((got - want).abs().nan_to_num(0.0).max())
                 ident = -torch.inf if op == "max" else 0.0
                 lib_op = "amax" if op == "max" else "sum"
                 iters = 200 if N < 1000 else 50
-                ms = cuda_ms(lambda: segred.segmented_reduce(vals, pid, op),
-                             iters)
+                # the kernel, its first design and the library call in
+                # turns on the same inputs
+                ms, old_ms, library_ms = cuda_ms_turns([
+                    lambda: segred.segmented_reduce(vals, pid, op),
+                    lambda: _segred_first(first, vals, pid, op),
+                    lambda: torch.full_like(vals, ident).scatter_reduce_(
+                        1, pid, vals, lib_op, include_self=True)], iters)
                 plain_ms = cuda_ms(
                     lambda: segred.segmented_reduce_plain(vals, pid, op),
                     iters)
-                library_ms = cuda_ms(
-                    lambda: torch.full_like(vals, ident).scatter_reduce_(
-                        1, pid, vals, lib_op, include_self=True), iters)
                 # each input read once (vals + pid), the output written once
                 nbytes = N * n * (esize + 8) + N * n * esize
                 ops = N * n                  # one max/add per input element
                 t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
                 t_ops = ops / PEAK_OPS_PER_S[dname] * 1e3
                 row = {"N": N, "n": n, "dtype": dname, "op": op,
-                       "max_abs_err": err, "max_rel_err": rel, "ms": ms,
+                       "max_abs_err": err, "ms": ms,
+                       "first_design_ms": old_ms,
                        "plain_ms": plain_ms, "library_ms": library_ms,
                        "bound_ms": max(t_bytes, t_ops),
                        "bound_by": "bytes" if t_bytes >= t_ops
                        else "operations", "bytes": nbytes, "ops": ops}
                 rows.append(row)
-                say("kernels", f"segred {op} {dname} [{N},{n}]: ok, max abs "
-                               f"err {err:.3g}; kernel {ms:.5f} ms, plain "
+                say("kernels", f"segred {op} {dname} [{N},{n}]: ok, bitwise "
+                               f"equal; kernel {ms:.5f} ms, first design "
+                               f"{old_ms:.5f} ms (medians in turns), plain "
                                f"{plain_ms:.5f} ms, scatter_reduce "
                                f"{library_ms:.5f} ms, bound "
                                f"{row['bound_ms']:.6f} ms ({row['bound_by']})")
@@ -354,7 +441,10 @@ def phase_kernels():
 def _wkv_inputs(shape, w_range, dtype, seed):
     """(B, T, H, hs) r, k, v ~ N(0, 0.25) in ``dtype``, float32 w uniform
     in ``w_range`` and u ~ N(0, 0.01) of shape (H, hs), drawn on the card
-    from ``seed``."""
+    from ``seed``. ``w_range`` "zeros" or "tiny" puts a third of the
+    multipliers at exactly 0 or near 1e-30, the rest in [0.55, 0.95];
+    "model" draws the model's own decay, exp(-exp(-4 + 0.01 x)), about
+    0.98 (models/rwkv.py)."""
     import torch
     B, T, H, hs = shape
     g = torch.Generator("cuda").manual_seed(seed)
@@ -362,10 +452,19 @@ def _wkv_inputs(shape, w_range, dtype, seed):
     def normal(*size):
         return torch.randn(size, generator=g, device="cuda")
 
+    def uniform(lo, hi):
+        return lo + (hi - lo) * torch.rand((B, T, H, hs), generator=g,
+                                           device="cuda")
+
     r, k, v = (0.5 * normal(B, T, H, hs) for _ in range(3))
-    lo, hi = w_range
-    w = lo + (hi - lo) * torch.rand((B, T, H, hs), generator=g,
-                                    device="cuda")
+    if w_range == "model":
+        w = torch.exp(-torch.exp(-4.0 + 0.01 * normal(B, T, H, hs)))
+    elif isinstance(w_range, str):
+        edge = {"zeros": 0.0, "tiny": 1e-30}[w_range]
+        w = torch.where(uniform(0.0, 1.0) < 1 / 3, edge * uniform(1.0, 2.0),
+                        uniform(0.55, 0.95))
+    else:
+        w = uniform(*w_range)
     u = 0.1 * normal(H, hs)
     return r.to(dtype), k.to(dtype), v.to(dtype), w, u
 
@@ -375,7 +474,8 @@ def _wkv_bound(shape, dtype):
     and the output written once (r, k, v, out in their dtype, w and u in
     float32), and about 4*hs operations per (token, channel) — two
     multiply-adds of the readout and two of the state update — at the
-    float32 rate, since the kernel computes in float32."""
+    card's peak for the inputs' type: bfloat16 on the tensor cores (where
+    the chunked kernel runs its products), float32 on the CUDA cores."""
     import torch
     B, T, H, hs = shape
     n = B * T * H * hs
@@ -383,7 +483,7 @@ def _wkv_bound(shape, dtype):
     nbytes = n * (4 * esize + 4) + H * hs * 4
     ops = n * 4 * hs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["float32"] * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[str(dtype).replace("torch.", "")] * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "bytes": nbytes, "ops": ops}
@@ -411,9 +511,10 @@ def _wkv_limit_used(got, want):
                        WKV_BF16_SLACK * float(want.float().abs().max()))
 
 
-def phase_wkv6():
+def phase_wkv6(yardsticks):
     import torch
     from repro_torch.kernels import rwkv6_scan
+    step = yardsticks["wkv6"]
     checks = [(shape, w, dtype) for shape, w in WKV_CHECKS
               for dtype in (torch.float32, torch.bfloat16)]
     checks += [(WKV_LM_SHAPE, (0.55, 0.95), torch.bfloat16),
@@ -435,20 +536,34 @@ def phase_wkv6():
                  f"{'' if dname == 'float32' else '; one rounding step'}) "
                  f"of the plain version")
         big = shape[1] >= 1024
-        ms = cuda_ms(lambda: rwkv6_scan.wkv6(*args), 20 if big else 200)
+        iters = 20 if big else 200
+        old_ms = None
+        if dtype == torch.bfloat16:
+            # and the step kernel this one replaced, in turns on the same
+            # inputs
+            ms, old_ms = cuda_ms_turns(
+                [lambda: rwkv6_scan.wkv6(*args),
+                 lambda: _wkv_step(step, *args)], iters, rounds=3)
+        else:
+            ms, = cuda_ms_turns([lambda: rwkv6_scan.wkv6(*args)], iters,
+                                rounds=3)
         plain_ms = cuda_ms(lambda: rwkv6_scan.wkv6_plain(*args),
                            2 if big else 5, warmup=1)
-        row = {"shape": list(shape), "w_range": list(w_range),
+        row = {"shape": list(shape),
+               "w_range": w_range if isinstance(w_range, str)
+               else list(w_range),
                "dtype": dname, "max_abs_err": err, "limit_used": used,
-               "ms": ms,
+               "ms": ms, "step_kernel_ms": old_ms,
                "plain_ms": plain_ms, "library_ms": None,
                **_wkv_bound(shape, dtype)}
         rows.append(row)
-        say("kernels", f"wkv6 {dname} (B,T,H,hs)={shape} w in {w_range}: ok, "
+        old = "" if old_ms is None else \
+            f", step kernel {old_ms:.5f} ms (medians in turns)"
+        say("kernels", f"wkv6 {dname} (B,T,H,hs)={shape} w {w_range}: ok, "
                        f"max abs err {err:.3g} ({used:.3g} of the limit); "
-                       f"kernel {ms:.5f} ms, plain "
-                       f"{plain_ms:.3f} ms, bound {row['bound_ms']:.5f} ms "
-                       f"({row['bound_by']}); no single library call")
+                       f"kernel {ms:.5f} ms{old}, plain {plain_ms:.3f} ms, "
+                       f"bound {row['bound_ms']:.5f} ms ({row['bound_by']}); "
+                       f"no single library call")
     return rows
 
 
@@ -528,15 +643,16 @@ def phase_flash():
                  f"of the plain version")
         del got, want
         big = shape[1] >= 1024
-        ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=causal),
-                     10 if big else 100, warmup=2 if big else 5)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        # the kernel and the library call in turns on the same inputs
+        ms, library_ms = cuda_ms_turns([
+            lambda: fa.flash_attention(q, k, v, causal=causal),
+            lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal, enable_gqa=True)],
+            10 if big else 100, rounds=3, warmup=2 if big else 5)
         plain_ms = cuda_ms(
             lambda: fa.flash_attention_plain(q, k, v, causal=causal),
             3 if big else 50, warmup=1 if big else 5)
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=causal, enable_gqa=True),
-            10 if big else 100, warmup=2 if big else 5)
         row = {"shape": list(shape), "dtype": dname, "causal": causal,
                "max_abs_err": err, "limit_used": used, "ms": ms,
                "plain_ms": plain_ms,
@@ -1018,6 +1134,53 @@ def phase_profile_lm(phase, model, batch, lm, kernel):
     return out
 
 
+def _is_segred(name):
+    """Whether a traced kernel is one of segred's (``segred_kernel``,
+    ``segred_output_kernel``, or the first design's ``segred_kernel``)."""
+    return "segred" in name and "kernel" in name
+
+
+def phase_profile_segred(yardsticks):
+    """segred's device time a launch under torch.profiler, beside its first
+    design's, float32, at the mapper's shape and a brute-force chunk's: 100
+    launches of each, in separate traces (the first design's kernel is
+    named segred_kernel too). This separates the kernels from the host
+    work that sets the CUDA-event time of a call at 28 rows."""
+    import torch
+    from repro_torch.core.accel import segred
+    first = yardsticks["segred"]["float32"]
+    rows = []
+    for N, n in SEGRED_SHAPES[:2]:
+        vals, pid = _segred_inputs(N, n, torch.float32, seed=N + n)
+        for op in ("max", "sum"):
+            us = {}
+            for design, fn in (
+                    ("kernel", lambda: segred.segmented_reduce(vals, pid, op)),
+                    ("first design",
+                     lambda: _segred_first(first, vals, pid, op))):
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+                _, dev, by_name = _profile(
+                    lambda: [fn() for _ in range(100)])
+                hits = [v for k, v in by_name.items() if _is_segred(k)]
+                count = sum(v[1] for v in hits)
+                us[design] = (sum(v[0] for v in hits) / count) if count \
+                    else None
+            row = {"N": N, "n": n, "dtype": "float32", "op": op,
+                   "device_us": us["kernel"],
+                   "first_design_device_us": us["first design"]}
+            rows.append(row)
+            if us["kernel"] is None or us["first design"] is None:
+                say("profile", f"segred {op} [{N},{n}]: the profiler traced "
+                               f"no segred launch: device time not measured")
+                continue
+            say("profile", f"segred {op} float32 [{N},{n}]: device "
+                           f"{us['kernel']:.3f} us a launch, first design "
+                           f"{us['first design']:.3f} us (100 launches each)")
+    return rows
+
+
 def phase_profile(runs):
     """The first request once more under torch.profiler. Device time is the
     sum of the traced kernel and copy durations (one stream, so they do not
@@ -1043,9 +1206,12 @@ def phase_profile(runs):
         say("profile", "the profiler traced no device activity: device "
                        "time not measured")
         return out
-    seg = [v for k, v in by_name.items() if "segred_kernel" in k]
+    seg = [v for k, v in by_name.items() if _is_segred(k)]
     out["segred_device_s"] = sum(v[0] for v in seg) * 1e-6
     out["segred_events"] = sum(v[1] for v in seg)
+    if not out["segred_events"]:
+        fail("the profiler traced the request's device work but no segred "
+             "launch, though its counter saw them")
     say("profile", f"{out['request']}: {len(dev)} device events, device busy "
                    f"{device_s:.4f} s of {plain_wall:.3f} s wall (idle share "
                    f"{out['idle_share']:.4f}); profiled wall {wall:.3f} s; "
@@ -1064,9 +1230,9 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     kind, smi_line = phase_device()
     import torch
-    build = phase_build()
-    rows = phase_kernels()
-    wkv_rows = phase_wkv6()
+    build, yardsticks = phase_build()
+    rows = phase_kernels(yardsticks)
+    wkv_rows = phase_wkv6(yardsticks)
     flash_rows = phase_flash()
     runs, launches = phase_main()
     model, batch, lm = phase_lm()
@@ -1074,8 +1240,9 @@ def main() -> None:
     profiled = None
     if "--profile" in sys.argv[1:]:
         profiled = {"mapping": phase_profile(runs),
+                    "segred": phase_profile_segred(yardsticks),
                     "lm": phase_profile_lm("lm", model, batch, lm,
-                                           "wkv6_kernel"),
+                                           "wkv6_chunk_kernel"),
                     "lm-dense": phase_profile_lm("lm-dense", dense_model,
                                                  dense_batch, dense,
                                                  "flash_attn_mma_kernel")}

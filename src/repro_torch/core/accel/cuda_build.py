@@ -12,6 +12,9 @@ an unchanged one is reused.
 build seconds, whether the library was reused from an earlier build, and
 ``ptxas``'s register / shared-memory report (``-Xptxas -v``), which is kept
 beside the library so that a reused build still has it.
+
+A source outside ``csrc/`` (a yardstick kept under ``tools/``) is built and
+cached the same way when its path is passed with its name.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Sequence
+from typing import Dict, Mapping, Optional, Sequence
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 
@@ -62,16 +65,17 @@ def find_nvcc() -> str:
                        "the port's CUDA kernels are built at first use")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed. Builds of
-    different sources may run at once (``load_all``)."""
+def load(name: str, src: Optional[Path] = None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (or for ``src``, under
+    ``name``), built if needed. Builds of different sources may run at once
+    (``load_all``)."""
     with _LOCK:
         name_lock = _NAME_LOCKS.setdefault(name, threading.Lock())
     with name_lock:
         lib = _LIBS.get(name)
         if lib is not None:
             return lib
-        src = CSRC / f"{name}.cu"
+        src = Path(src) if src is not None else CSRC / f"{name}.cu"
         digest = hashlib.sha256(src.read_bytes()
                                 + " ".join(NVCC_FLAGS).encode()).hexdigest()
         out_dir = BUILD_DIR
@@ -104,11 +108,15 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def load_all(names: Sequence[str]) -> Dict[str, ctypes.CDLL]:
-    """``load`` every name, all builds started together (one nvcc per
-    source, each in its own thread)."""
+def load_all(names: Sequence[str],
+             sources: Optional[Mapping[str, Path]] = None
+             ) -> Dict[str, ctypes.CDLL]:
+    """``load`` every name (from ``sources[name]`` where given), all builds
+    started together (one nvcc per source, each in its own thread)."""
+    sources = sources or {}
     with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        return dict(zip(names, pool.map(load, names)))
+        return dict(zip(names, pool.map(
+            lambda name: load(name, sources.get(name)), names)))
 
 
 __all__ = ["load", "load_all", "BUILD_DIR", "find_nvcc", "BUILD_INFO",

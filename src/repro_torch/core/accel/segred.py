@@ -12,9 +12,15 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 stream, or raises; there is no fallback. Only a CPU tensor takes
 ``segmented_reduce_plain``. ``LAUNCHES`` counts kernel launches, so a run
 can show that the main path went through the kernel.
+
+At the descent's shapes ([28, 47]) a call's time is the wrapper's host
+work, so the wrapper keeps it small: the C entry point of each dtype is
+resolved and typed once, and the current stream is taken without entering
+a device context when the tensor's device is already the current one.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -27,6 +33,11 @@ OPS = {"max": 0, "sum": 1}
 _ENTRY = {torch.float32: "segred_f32", torch.float64: "segred_f64"}
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+#: the kernel's longest row (``kMaxN`` in ``csrc/segred.cu``)
+MAX_N = 8192
+
+#: dtype -> the typed ctypes entry point, resolved at first launch
+_FNS: dict = {}
 
 
 def segmented_reduce_plain(vals: torch.Tensor, pid: torch.Tensor,
@@ -48,19 +59,22 @@ def segmented_reduce_plain(vals: torch.Tensor, pid: torch.Tensor,
 
 
 def _check(vals: torch.Tensor, pid: torch.Tensor, op: str) -> None:
+    """Raise on what the kernel does not take; each property is read once
+    (at the mapper's shapes this is a good part of a call)."""
     if op not in OPS:
         raise ValueError(f"op must be 'max' or 'sum', got {op!r}")
     if vals.dtype not in _ENTRY:
         raise TypeError(f"vals must be float32 or float64, got {vals.dtype}")
-    if pid.dtype != torch.int64:
+    if pid.dtype is not torch.int64:
         raise TypeError(f"pid must be int64, got {pid.dtype}")
-    if vals.dim() != 2 or pid.shape != vals.shape:
+    shape = vals.shape
+    if len(shape) != 2 or pid.shape != shape:
         raise ValueError(f"vals and pid must both be [N, n]; got "
-                         f"{tuple(vals.shape)} and {tuple(pid.shape)}")
-    N, n = vals.shape
-    if N == 0 or n == 0 or N * n >= 2 ** 31:
+                         f"{tuple(shape)} and {tuple(pid.shape)}")
+    N, n = shape
+    if not (0 < N and 0 < n <= MAX_N and N * n < 2 ** 31):
         raise ValueError(f"[N, n] = [{N}, {n}] is outside the kernel's range "
-                         f"(1 <= N * n < 2**31)")
+                         f"(1 <= n <= {MAX_N}, 1 <= N * n < 2**31)")
     if vals.device != pid.device:
         raise ValueError(f"vals on {vals.device} but pid on {pid.device}")
     if not (vals.is_contiguous() and pid.is_contiguous()):
@@ -79,14 +93,19 @@ def segmented_reduce(vals: torch.Tensor, pid: torch.Tensor,
     if vals.device.type != "cuda":
         raise ValueError(f"segmented_reduce runs on cuda or cpu tensors, "
                          f"got {vals.device}")
-    from repro_torch.core.accel import cuda_build
-    fn = getattr(cuda_build.load("segred"), _ENTRY[vals.dtype])
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    fn = _FNS.get(vals.dtype)
+    if fn is None:
+        from repro_torch.core.accel import cuda_build
+        fn = getattr(cuda_build.load("segred"), _ENTRY[vals.dtype])
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _FNS[vals.dtype] = fn
     N, n = vals.shape
     out = torch.empty_like(vals)
-    with torch.cuda.device(vals.device):
-        stream = torch.cuda.current_stream(vals.device).cuda_stream
+    index = vals.device.index
+    stream = torch.cuda.current_stream(index).cuda_stream
+    with (contextlib.nullcontext() if index == torch.cuda.current_device()
+          else torch.cuda.device(index)):
         err = fn(vals.data_ptr(), pid.data_ptr(), out.data_ptr(), N, n,
                  OPS[op], stream)
     if err != 0:
@@ -96,4 +115,5 @@ def segmented_reduce(vals: torch.Tensor, pid: torch.Tensor,
     return out
 
 
-__all__ = ["segmented_reduce", "segmented_reduce_plain", "LAUNCHES", "OPS"]
+__all__ = ["segmented_reduce", "segmented_reduce_plain", "LAUNCHES", "OPS",
+           "MAX_N"]

@@ -9,10 +9,11 @@ itself, so nothing is transposed, padded or copied around it.
 
 On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/wkv6.cu``, built at first use by ``cuda_build``) on the current
-stream, or raises; there is no fallback. Only a CPU tensor takes the plain
-version, ``wkv6_plain``, which is the oracle ``ref.rwkv6``. ``LAUNCHES``
-counts kernel launches, so a run can show that the model went through the
-kernel.
+stream, or raises; there is no fallback. bfloat16 r, k, v go to the
+chunked tensor-core kernel, float32 to the step-by-step recurrence. Only a
+CPU tensor takes the plain version, ``wkv6_plain``, which is the oracle
+``ref.rwkv6``. ``LAUNCHES`` counts kernel launches, so a run can show that
+the model went through the kernel.
 """
 from __future__ import annotations
 
@@ -30,6 +31,9 @@ HEAD_SIZES = (32, 64, 128)
 
 _ENTRY = {torch.float32: "wkv6_f32", torch.bfloat16: "wkv6_bf16"}
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+#: dtype -> the typed ctypes entry point, resolved at first launch
+_FNS: dict = {}
 
 
 def wkv6_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -78,10 +82,18 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if r.device.type != "cuda":
         raise ValueError(f"wkv6 runs on cuda or cpu tensors, got "
                          f"{r.device}")
-    from repro_torch.core.accel import cuda_build
-    fn = getattr(cuda_build.load("wkv6"), _ENTRY[r.dtype])
-    fn.argtypes = _ARGTYPES
-    fn.restype = ctypes.c_int
+    if r.dtype == torch.bfloat16 and any(x.data_ptr() % 16
+                                         for x in (r, k, v, w)):
+        # the chunked kernel stages its inputs with 16-byte copies
+        raise ValueError("bfloat16 r, k, v and their w must start on a "
+                         "16-byte boundary on the card")
+    fn = _FNS.get(r.dtype)
+    if fn is None:
+        from repro_torch.core.accel import cuda_build
+        fn = getattr(cuda_build.load("wkv6"), _ENTRY[r.dtype])
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _FNS[r.dtype] = fn
     B, T, H, hs = r.shape
     out = torch.empty_like(r)
     with torch.cuda.device(r.device):

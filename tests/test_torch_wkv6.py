@@ -1,8 +1,9 @@
 """The RWKV6 WKV recurrence: the port's oracle against the JAX oracle, the
 port's wrapper (on the CPU, the kernel's plain version) against the Pallas
-kernel in interpret mode, a strong-decay case held to the oracle, the
-wrapper's checks, and — on a card only — the CUDA kernel against its plain
-version."""
+kernel in interpret mode, a strong-decay case and the decay's edge cases
+held to the oracle, the wrapper's checks, a CPU emulation of the chunked
+bf16 kernel's arithmetic, and — on a card only — the CUDA kernel against
+its plain version."""
 import re
 from pathlib import Path
 
@@ -34,13 +35,42 @@ def _needs_jax():
 
 def _inputs(B, T, H, hs, seed=0, w_range=(0.55, 0.95)):
     """r, k, v ~ N(0, 0.25), w uniform in ``w_range`` (the JAX kernel
-    test's range by default), u ~ N(0, 0.01); float32 numpy."""
+    test's range by default), u ~ N(0, 0.01); float32 numpy. ``w_range``
+    may instead name an edge case of the decay (``W_EDGES``)."""
     rng = np.random.default_rng(seed)
     r, k, v = (0.5 * rng.standard_normal((B, T, H, hs)) for _ in range(3))
-    lo, hi = w_range
-    w = lo + (hi - lo) * rng.random((B, T, H, hs))
+    if isinstance(w_range, str):
+        w = W_EDGES[w_range](rng, (B, T, H, hs))
+    else:
+        lo, hi = w_range
+        w = lo + (hi - lo) * rng.random((B, T, H, hs))
     u = 0.1 * rng.standard_normal((H, hs))
     return tuple(a.astype(np.float32) for a in (r, k, v, w, u))
+
+
+#: decays at the edges of [0, 1]: a third of the multipliers exactly 0 (in
+#: float32 exp(-exp(x)) is 0 once x > about 4.5), or near 1e-30, the rest in
+#: the JAX test's range; every multiplier exactly 1; and the model's own,
+#: about 0.98 (a long memory)
+W_EDGES = {
+    "zeros": lambda rng, shape: np.where(rng.random(shape) < 1 / 3, 0.0,
+                                         0.55 + 0.4 * rng.random(shape)),
+    "tiny": lambda rng, shape: np.where(rng.random(shape) < 1 / 3,
+                                        1e-30 * (1 + rng.random(shape)),
+                                        0.55 + 0.4 * rng.random(shape)),
+    "ones": lambda rng, shape: np.ones(shape),
+    # the model's: exp(-exp(decay + 0.01 x)), decay -4 (models/rwkv.py)
+    "model": lambda rng, shape: np.exp(-np.exp(
+        -4.0 + 0.01 * rng.standard_normal(shape))),
+}
+
+#: the edge cases (B, T, H, hs) and decay: the decay's edges, one step, a
+#: ragged step past a multiple of every chunk length, head sizes 32 and
+#: 128, and the model's own decay over a long sequence
+EDGE_CASES = [((1, 256, 2, 64), "zeros"), ((1, 256, 2, 64), "tiny"),
+              ((1, 256, 2, 64), "ones"), ((2, 1, 3, 64), (0.55, 0.95)),
+              ((1, 4097, 1, 64), (0.55, 0.95)), ((2, 300, 3, 32), "zeros"),
+              ((1, 300, 2, 128), "tiny"), ((1, 2048, 2, 64), "model")]
 
 
 def _t(*arrays):
@@ -115,6 +145,30 @@ def test_strong_decay_matches_oracle():
     got = ops.rwkv6(*_t(*args))
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,w_range", EDGE_CASES)
+def test_plain_version_holds_the_jax_oracle_at_the_edges(shape, w_range,
+                                                         dtype):
+    """The wrapper's plain version (a CPU tensor) against the JAX oracle at
+    the edge cases: float32 at 1e-5 (as the strong-decay case), bfloat16
+    r, k, v within one rounding step (both sum in float32 and round once);
+    every output finite."""
+    _needs_jax()
+    args = _inputs(*shape, seed=sum(shape), w_range=w_range)
+    r, k, v, w, u = _t(*args)
+    if dtype == "bfloat16":
+        r, k, v = (x.bfloat16() for x in (r, k, v))
+    want, _ = jax_ref.rwkv6(*(np.asarray(x.float()) for x in (r, k, v)),
+                            args[3], args[4])
+    got = ops.rwkv6(r, k, v, w, u)
+    assert got.shape == shape and bool(torch.isfinite(got.float()).all())
+    want = torch.from_numpy(np.array(want))
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        _within_one_rounding_step(got, want.bfloat16())
 
 
 def test_pallas_kernel_breaks_under_strong_decay():
@@ -198,8 +252,163 @@ def test_kernel_source_exports_what_the_wrapper_calls():
     src = (CSRC / "wkv6.cu").read_text()
     for entry in ("wkv6_f32", "wkv6_bf16"):
         assert re.search(rf'extern "C" int {entry}\(', src)
-    cases = {int(c) for c in re.findall(r"case (\d+): launch_hs", src)}
+    for launch in (r"launch_hs<\d+, float>", r"return launch_chunk<\d+>"):
+        cases = {int(c) for c in re.findall(rf"case (\d+): {launch}", src)}
+        assert cases == set(rwkv6_scan.HEAD_SIZES), launch
+
+
+def test_step_yardstick_source_runs_bf16_step_by_step():
+    """The yardstick ``chip_smoke.py`` and ``tools/wkv6_variants.py`` time
+    beside the chunked kernel (``tools/wkv6_step_design.cu``) is
+    self-contained: its ``wkv6_bf16`` runs the step kernel at every head
+    size the wrapper accepts."""
+    src = (CSRC.parents[2] / "tools" / "wkv6_step_design.cu").read_text()
+    assert re.search(r'extern "C" int wkv6_bf16\([^)]*\) \{\s+return '
+                     r'launch<__nv_bfloat16>\(', src)
+    cases = {int(c) for c in re.findall(r"case (\d+): launch_hs<\d+, T>",
+                                        src)}
     assert cases == set(rwkv6_scan.HEAD_SIZES)
+    assert "launch_chunk" not in src
+
+
+def test_variants_tool_edits_apply_to_the_source():
+    """Every variant of ``tools/wkv6_variants.py`` (its diagnostics too)
+    finds the lines it replaces or cuts in ``csrc/wkv6.cu``, and its step
+    kernel is the yardstick's own source."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "wkv6_variants", CSRC.parents[2] / "tools" / "wkv6_variants.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    committed = (CSRC / "wkv6.cu").read_text()
+    for name in {**tool.VARIANTS, **tool.DIAGNOSTIC}:
+        text = tool.source(name)       # raises where an edit does not apply
+        assert (text == committed) == (name == "committed"), name
+    assert tool.source(tool.STEP_KERNEL) == tool.STEP_SOURCE.read_text()
+
+
+def _pieces(x, n):
+    """float32 x as the kernel feeds it to the tensor cores: n bf16 pieces
+    (hi = bf16(x), mid = bf16(x - hi), ...), each exact in float32."""
+    out, rest = [], x
+    for _ in range(n):
+        piece = rest.bfloat16().float()
+        out.append(piece)
+        rest = rest - piece
+    return out
+
+
+def _chunked_arithmetic(r, k, v, w, u, *, pieces=3, chunk=16):
+    """The chunked bf16 kernel's arithmetic (``csrc/wkv6.cu``,
+    ``wkv6_chunk_kernel``) on the CPU, in float32, before the output's one
+    rounding. Per chunk of 16 steps: the decays as running products of w
+    in float32 (P_i forward, Q_s backward, and w_(s+1) ... w_(i-1) for
+    each pair s < i), never divided; r P, k Q, the intra-chunk scores A
+    and the state S in ``pieces`` bf16 pieces; S (r P)^T as the products
+    of piece orders up to pieces - 1, A and k Q against the exact bf16 v
+    piece by piece; float32 sums. Steps past T are zero, as the kernel's
+    zero-filled copies."""
+    B, T, H, hs = r.shape
+    rf, kf, vf, wf = (x.float().transpose(1, 2) for x in (r, k, v, w))
+    uf = u.float()
+    out = torch.zeros(B, H, T, hs)
+    S = torch.zeros(B, H, hs, hs)                       # [c, j]
+    for t0 in range(0, T, chunk):
+        n = min(chunk, T - t0)
+
+        def take(x):
+            y = torch.zeros(B, H, chunk, hs)
+            y[:, :, :n] = x[:, :, t0:t0 + n]
+            return y
+
+        rc, kc, vc, wc = (take(x) for x in (rf, kf, vf, wf))
+        P, rd = torch.ones(B, H, hs), []
+        for i in range(chunk):
+            rd.append(rc[:, :, i] * P)
+            P = P * wc[:, :, i]
+        Q, kd = torch.ones(B, H, hs), [None] * chunk
+        for s in reversed(range(chunk)):
+            kd[s] = kc[:, :, s] * Q
+            Q = Q * wc[:, :, s]
+        A = torch.zeros(B, H, chunk, chunk)                # [i, s]
+        for s in range(chunk):
+            a = kc[:, :, s]
+            A[:, :, s, s] = (rc[:, :, s] * (uf * a)).sum(-1)
+            for i in range(s + 1, chunk):
+                A[:, :, i, s] = (rc[:, :, i] * a).sum(-1)
+                a = a * wc[:, :, i]
+        Sp, Rp = _pieces(S, pieces), _pieces(torch.stack(rd, 2), pieces)
+        o = sum(Rp[x] @ Sp[y] for x in range(pieces) for y in range(pieces)
+                if x + y < pieces)
+        o = o + sum(a @ vc for a in _pieces(A, pieces))
+        out[:, :, t0:t0 + n] = o[:, :, :n]
+        kq = torch.stack(kd, 2).transpose(-1, -2)           # [c, s]
+        S = S * P[..., None] + sum(x @ vc for x in _pieces(kq, pieces))
+    return out.transpose(1, 2)
+
+
+def _recurrence64(r, k, v, w, u):
+    """The recurrence in float64 (zero initial state): the yardstick of the
+    float32 arithmetic."""
+    B, T, H, hs = r.shape
+    rd, kd, vd, wd = (x.double() for x in (r, k, v, w))
+    ud = u.double()[None, :, :, None]
+    S = torch.zeros(B, H, hs, hs, dtype=torch.float64)
+    outs = []
+    for t in range(T):
+        kv = kd[:, t, :, :, None] * vd[:, t, :, None, :]
+        outs.append(torch.einsum("bhk,bhkv->bhv", rd[:, t], S + ud * kv))
+        S = wd[:, t, :, :, None] * S + kv
+    return torch.stack(outs, dim=1)
+
+
+def _step_limit_used(got, want):
+    """The largest share of one bf16 rounding step plus 2e-6 max|want| that
+    any element uses (<= 1 holds)."""
+    diff, mag = (got.float() - want.float()).abs(), want.float().abs()
+    return float((diff / (2.0 ** -7 * mag + 2e-6 * float(mag.max()))).max())
+
+
+@pytest.mark.parametrize("w_range", [(0.55, 0.95), (0.02, 0.1), "zeros",
+                                     "tiny", "ones", "model"])
+def test_chunked_arithmetic_holds_one_rounding_step(w_range):
+    """The kernel's three-piece operands hold the card's bf16 check against
+    the oracle at (1, 256, 2, 64), for the JAX test's decays, strong decay,
+    the decay's edges and the model's own decay; every output finite."""
+    r, k, v, w, u = _t(*_inputs(1, 256, 2, 64, seed=11, w_range=w_range))
+    r, k, v = (x.bfloat16() for x in (r, k, v))
+    want, _ = ref.rwkv6(r, k, v, w, u)
+    got = _chunked_arithmetic(r, k, v, w, u).bfloat16()
+    assert bool(torch.isfinite(got.float()).all())
+    assert _step_limit_used(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("w_range", [(0.55, 0.95), (0.02, 0.1)])
+def test_chunked_arithmetic_needs_split_operands(w_range):
+    """One bf16 rounding of the float32 operands (S, r P, k Q, A) puts
+    outputs many rounding steps off the oracle: the split is what holds."""
+    r, k, v, w, u = _t(*_inputs(1, 256, 2, 64, seed=11, w_range=w_range))
+    r, k, v = (x.bfloat16() for x in (r, k, v))
+    want, _ = ref.rwkv6(r, k, v, w, u)
+    got = _chunked_arithmetic(r, k, v, w, u, pieces=1).bfloat16()
+    assert _step_limit_used(got, want) > 10.0
+
+
+@pytest.mark.parametrize("pieces,holds", [(3, True), (2, False)])
+def test_chunked_arithmetic_needs_three_pieces_under_long_memory(pieces,
+                                                                 holds):
+    """Under the model's own decay (w about 0.98: a state of some 50
+    steps) the float32 arithmetic, before the output's rounding, must stay
+    within 1e-6 max|y| of the recurrence in float64, half the slack of the
+    card's bf16 check (the plain float32 recurrence lies about 3e-7 from
+    it): three bf16 pieces do (about 2e-7), two do not (about 6e-6, which
+    on the card put in-model outputs past the check)."""
+    r, k, v, w, u = _t(*_inputs(1, 1024, 2, 64, seed=0, w_range="model"))
+    r, k, v = (x.bfloat16().float() for x in (r, k, v))
+    y64 = _recurrence64(r, k, v, w, u)
+    got = _chunked_arithmetic(r, k, v, w, u, pieces=pieces).double()
+    err = float((got - y64).abs().max() / y64.abs().max())
+    assert (err <= 1e-6) == holds, err
 
 
 def _card():
@@ -212,8 +421,11 @@ def _card():
 @pytest.mark.parametrize("shape,w_range", [
     *((s, (0.55, 0.95)) for s in WKV_SHAPES),
     ((1, 256, 2, 64), (0.02, 0.1)),
+    *EDGE_CASES,
 ])
 def test_kernel_matches_plain_on_card(shape, w_range, dtype):
+    """The JAX test's shapes, strong decay and the edge cases: float32 at
+    1e-4, bfloat16 at 2e-2 and one rounding step; every output finite."""
     _card()
     r, k, v, w, u = (x.to("cuda") for x in _t(*_inputs(
         *shape, seed=sum(shape), w_range=w_range)))
@@ -223,7 +435,7 @@ def test_kernel_matches_plain_on_card(shape, w_range, dtype):
     want, _ = ref.rwkv6(r, k, v, w, u)
     torch.cuda.synchronize()
     assert rwkv6_scan.LAUNCHES == before + 1
-    assert got.dtype == dtype
+    assert got.dtype == dtype and bool(torch.isfinite(got.float()).all())
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=tol)
     if dtype == torch.bfloat16:
@@ -256,3 +468,19 @@ def test_kernel_matches_plain_on_card_at_lm_shape():
             torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
         else:
             _within_one_rounding_step(got, want)
+
+
+@pytest.mark.gpu
+def test_bf16_kernel_refuses_a_misaligned_tensor_on_card():
+    """The chunked kernel copies 16 bytes at a time: a contiguous view that
+    starts off a 16-byte boundary raises rather than launching."""
+    _card()
+    r, k, v, w, u = (x.to("cuda") for x in _t(*_inputs(1, 64, 2, 32)))
+    r, k, v = (x.bfloat16() for x in (r, k, v))
+    shifted = torch.empty(r.numel() + 1, dtype=r.dtype, device="cuda")
+    r1 = shifted[1:].view(r.shape)
+    r1.copy_(r)
+    before = rwkv6_scan.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        rwkv6_scan.wkv6(r1, k, v, w, u)
+    assert rwkv6_scan.LAUNCHES == before
