@@ -43,7 +43,26 @@ phase's failure is caught while the run goes on:
               engine, for two requests; each must equal the port's numpy
               engine (points, variables, history, objective) and the JAX
               package's recorded values, and must have launched segred
-  5. lm       ``repro_torch.models.model.Model(rwkv6-1.6b, use_flash=True)``
+  5. search   the other two optimisers' entry points with the torch engine
+              on the same arch, shape and platform (each timed call's plan
+              equal to ``optimise_mapping``'s for the request): brute force
+              (a) on the megatron backend, spmd/latency, every cut set of up
+              to two cuts (201,933 points) and (b) on the spmd backend, the
+              empty cut set's first 262,144 points in chunks of 65,536, each
+              equal to the port's numpy engine run live and to the JAX
+              package's record (points, design, history indices, objective;
+              recorded objectives at 1e-5), segred launched in (a) and not in
+              (b); (c) multi-chain SA (spmd backend, both of phase 4's
+              requests, 64 chains, the default 342 sweeps): seed 0 twice
+              identical, seed 1 another path, the whole schedule once more
+              with every host sync an error and every chain's incumbent
+              re-evaluated in float64 by the numpy engine (feasibility
+              equal, objectives at 1e-5), and the schedule in float64
+              with the same draws on the card and on the CPU, equal after
+              every sweep (objectives within 1e-9); wall, points/s and
+              segred launches of each request beside the card's name and
+              power limit
+  6. lm       ``repro_torch.models.model.Model(rwkv6-1.6b, use_flash=True)``
               at full width: (a) the first 2 layers with float32 weights from
               the seeded numpy recipe, B=1, T=128, held to the JAX package's
               record (loss 1e-4 relative, sampled logits 1e-3 absolute);
@@ -60,7 +79,7 @@ phase's failure is caught while the run goes on:
               fixed 6e-2, see PERF.md); (c) the (b) weights in float32, all
               24 layers: the kernel forward held to the plain-WKV float32
               forward (logits 1e-3 abs and rel, loss 1e-5 relative)
-  6. lm-dense ``Model(tinyllama-1.1b, use_flash=True)`` at full width, the
+  7. lm-dense ``Model(tinyllama-1.1b, use_flash=True)`` at full width, the
               same two checks with flash attention in the kernel: (a) 2
               layers, float32 recipe weights, B=1, T=128, held to the JAX
               record ``DENSE_RECORD``; (b) all 22 layers in bfloat16 at B=2,
@@ -69,10 +88,11 @@ phase's failure is caught while the run goes on:
               (1e-3 relative) and the logits within 1.5 times that model's
               distance from the same model with attention in float64
 
-  7. profile (only with ``--profile``) the first mapping request and one
-              forward of each LM once more under ``torch.profiler``: device
-              busy time, the idle share, the kernel's share and the kernels
-              that take the most device time, beside the wall time; and
+  8. profile (only with ``--profile``) the first mapping request, each
+              [search] request (SA: spmd/latency) and one forward of each LM
+              once more under ``torch.profiler``: device busy time, the idle
+              share, the kernel's share and the kernels that take the most
+              device time, beside the wall time; and
               segred's device time a launch beside its first design's, at
               the mapper's shape and a brute-force chunk's
 
@@ -118,8 +138,40 @@ REQUESTS = (
      "history": 3},
 )
 
-#: the main path's shape, a brute-force chunk's, and one node a row
-SEGRED_SHAPES = ((28, 47), (65536, 47), (64, 1))
+#: [search] requests on tinyllama-1.1b / train_4k / V5E_POD. Brute force:
+#: the settings and the JAX package's record (CPU run of repro's
+#: engine="jax", equal to its engine="numpy"): points, objective, history
+#: [(index, objective)] and design (cuts, s_in, s_out, kern). (a) takes
+#: every cut set of up to two cuts (K1 in each of the 276 with a cut, at
+#: [1024, 47]); (b) the empty cut set only, in chunks of 65,536 rows, which
+#: is evaluated as one partition and launches K1 no time
+SEARCH_BF = (
+    {"name": "a", "backend": "megatron", "exec_model": "spmd",
+     "objective": "latency", "kw": {"include_cuts": True, "max_cuts": 2},
+     "points": 201933, "value": 0.22177328183717918,
+     "history": [(55, 0.22177329659461975)],
+     "variables": ((), [1] * 47, [1] * 47, [256] * 47), "segred": True},
+    {"name": "b", "backend": "spmd", "exec_model": "spmd",
+     "objective": "latency",
+     "kw": {"include_cuts": False, "max_points": 262144,
+            "batch_size": 65536},
+     "points": 262144, "value": 4.319828488379967,
+     "history": [(42312, 4.412864685058594), (42314, 4.32696533203125),
+                 (48370, 4.319828510284424)],
+     "variables": ((), [1, 1] + [16, 1] * 21 + [16] * 3,
+                   [1, 1] + [16, 1] * 21 + [16] * 3,
+                   [1, 256] * 22 + [1] * 3),
+     "segred": False},
+)
+#: [search] (c): multi-chain SA on the spmd backend, for both of phase 4's
+#: requests, 64 chains on the default schedule (342 sweeps), seeds 0 and 1
+SEARCH_SA = {"backend": "spmd", "chains": 64, "sweeps": 342, "seeds": (0, 1)}
+#: float32 agreement of recorded objectives with the float64 reference
+F32_RTOL = 1e-5
+
+#: the main path's shape, a brute-force chunk's, one node a row, and the
+#: shapes of [search]: a brute-force chunk of (a) and the SA chains of (c)
+SEGRED_SHAPES = ((28, 47), (65536, 47), (64, 1), (1024, 47), (64, 47))
 
 #: wkv6 check shapes (B, T, H, hs) and decay ranges: tests/test_kernels.py's
 #: WKV shapes, a strong-decay case, decays with exact zeros and near 1e-30,
@@ -746,6 +798,281 @@ def phase_main():
     return runs, launches
 
 
+def _timed_search(problem, optimiser, **kw):
+    """One call of the optimiser's entry point with the torch engine on
+    the card: (plan, result, wall seconds, segred launches). The launch
+    count is set to 0 just before the call and read just after it; the
+    wall time ends in ``torch.cuda.synchronize()``. The plan is
+    ``export_plan`` of the result, as ``optimise_mapping`` makes it."""
+    import torch
+    from repro_torch.core.accel import segred
+    from repro_torch.core.exporter import export_plan
+    from repro_torch.core.optimizers import OPTIMIZERS
+    torch.cuda.synchronize()
+    segred.LAUNCHES = 0
+    t0 = time.perf_counter()
+    result = OPTIMIZERS[optimiser](problem, engine="torch", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = segred.LAUNCHES
+    plan = export_plan(problem.graph, result.variables, problem.platform,
+                       problem.exec_model, result.evaluation)
+    return plan, result, wall, launches
+
+
+def _check_entry_point(tag, plan, optimiser, req_kw, **kw):
+    """``optimise_mapping`` with the torch engine on the card must return
+    the plan of the optimiser's own call."""
+    from repro_torch.core import pipeline
+    got = pipeline.optimise_mapping(optimiser=optimiser, engine="torch",
+                                    **kw, **req_kw)
+    if got != plan:
+        fail(f"[search] {tag}: optimise_mapping's plan (objective "
+             f"{got.objective_value!r}) differs from the optimiser's "
+             f"({plan.objective_value!r})")
+
+
+def _design(v):
+    return (tuple(v.cuts), list(v.s_in), list(v.s_out), list(v.kern))
+
+
+def _same_history(got, want):
+    """History indices equal, objectives at the float32 contract."""
+    return [i for i, _ in got] == [i for i, _ in want] and all(
+        abs(a - b) <= F32_RTOL * abs(b) for (_, a), (_, b) in zip(got, want))
+
+
+def _search_bf(req, arch, shape, smi_line):
+    from repro_torch.core import pipeline
+    from repro_torch.core.platform import V5E_POD
+    tag = (f"({req['name']}) brute force {req['backend']} "
+           f"{req['exec_model']}/{req['objective']}")
+    problem = pipeline.make_problem(arch, shape, V5E_POD, req["backend"],
+                                    req["objective"], req["exec_model"])
+    t0 = time.perf_counter()
+    ref = pipeline.OPTIMIZERS["brute_force"](problem, engine="numpy",
+                                             **req["kw"])
+    numpy_wall = time.perf_counter() - t0
+    plan, got, wall, n_launch = _timed_search(problem, "brute_force",
+                                              **req["kw"])
+    _check_entry_point(tag, plan, "brute_force", req["kw"], arch=arch,
+                       shape=shape, platform=V5E_POD, backend=req["backend"],
+                       objective=req["objective"],
+                       exec_model=req["exec_model"])
+    if (got.points, _design(got.variables)) != \
+            (ref.points, _design(ref.variables)) or \
+            not _same_history(got.history, ref.history) or \
+            plan.objective_value != ref.evaluation.objective:
+        fail(f"[search] {tag}: {got.points} points, history "
+             f"{_history(got.history)}, objective {plan.objective_value!r} "
+             f"differ from the numpy engine's {ref.points}, "
+             f"{_history(ref.history)}, {ref.evaluation.objective!r}")
+    if (got.points, plan.objective_value, _design(got.variables)) != \
+            (req["points"], req["value"], req["variables"]) or \
+            not _same_history(got.history, req["history"]):
+        fail(f"[search] {tag}: ({got.points}, {plan.objective_value!r}, "
+             f"{_history(got.history)}) differs from the JAX record "
+             f"({req['points']}, {req['value']!r}, {req['history']})")
+    if req["segred"] and n_launch <= 0:
+        fail(f"[search] {tag}: the cut sets with a cut launched segred 0 "
+             f"times")
+    if not req["segred"] and n_launch:
+        fail(f"[search] {tag}: the single-partition path launched segred "
+             f"{n_launch} times")
+    row = {"request": tag, "points": got.points,
+           "objective": plan.objective_value,
+           "history": _history(got.history), "wall_s": wall,
+           "points_per_s": got.points / wall, "segred_launches": n_launch,
+           "numpy_wall_s": numpy_wall,
+           "numpy_points_per_s": ref.points / numpy_wall, "device": smi_line}
+    say("search", f"{tag}: {got.points} points, objective "
+                  f"{plan.objective_value!r}, history {len(got.history)}; "
+                  f"equal to the numpy engine and the JAX record; wall "
+                  f"{wall:.3f} s, {row['points_per_s']:.0f} points/s (numpy "
+                  f"engine {numpy_wall:.3f} s, "
+                  f"{row['numpy_points_per_s']:.0f} points/s); segred "
+                  f"launches {n_launch}"
+                  + ("" if n_launch else " (one partition: no segmented "
+                                         "reduction)") + f"; {smi_line}")
+    return row
+
+
+def _sa_start(problem, dev, dtype):
+    """A DeviceSA on ``dev`` in ``dtype``, the repaired start design and
+    its evaluation, the objective scale and the ladder, as
+    ``annealing._optimise_torch`` makes them."""
+    import torch
+    from repro_torch.core.accel.search_loops import DeviceSA
+    from repro_torch.core.optimizers.annealing import LADDER_SPREAD, _scale_for
+    from repro_torch.core.optimizers.common import repair
+    sa = DeviceSA(problem, device=dev, dtype=dtype)
+    v0 = repair(problem, problem.backend.initial(problem.graph))
+    ev0 = problem.evaluate(v0)
+    temps = torch.tensor([1000.0 * LADDER_SPREAD ** c
+                          for c in range(SEARCH_SA["chains"])],
+                         dtype=dtype, device=dev)
+    return sa, v0, ev0, _scale_for(ev0, None), temps
+
+
+def _sa_float64_card_vs_cpu(problem, tag):
+    """The same float64 draws (from a CPU generator) on the card and on
+    the CPU, sweep by sweep over the whole schedule: the chains' folds,
+    cuts and feasibility equal after every sweep, their objectives within
+    1e-9; each incumbent equal, or tied with the other device's in the
+    float64 re-evaluation (a tie that the last bit of a sum can break
+    either way). Returns the number of such ties."""
+    import numpy as np
+    import torch
+    from repro_torch.core.accel.search_loops import SweepDraws, sa_draws
+    C, n = SEARCH_SA["chains"], len(problem.graph.nodes)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sa, v0, ev0, scale, temps = _sa_start(problem, dev, torch.float64)
+        runs[dev] = [sa, sa.init_state(v0, ev0, C, 0), temps]
+    gen = torch.Generator().manual_seed(7)
+    bev = problem.batched()
+    names = ("best_si", "best_so", "best_kk", "best_cb")
+    ties = 0
+    for k in range(SEARCH_SA["sweeps"]):
+        dr = sa_draws(gen, C, n, torch.float64)
+        st = {}
+        for dev, run in runs.items():
+            sa, state, temps = run
+            state, temps, _ = sa.run(state, temps, scale, 0.98, 1.0, 1,
+                                     draws=[SweepDraws(*(x.to(dev)
+                                                         for x in dr))])
+            run[1], run[2] = state, temps
+            st[dev] = {key: v.cpu().numpy() for key, v in state.items()
+                       if key != "gen"}
+        a, b = st["cuda"], st["cpu"]
+        for name in ("si", "so", "kk", "cb", "feas", "best_feas"):
+            if not np.array_equal(a[name], b[name]):
+                fail(f"[search] {tag}: float64 {name} on the card differs "
+                     f"from the CPU's after sweep {k}")
+        for name in ("obj", "best_obj"):
+            if not np.allclose(a[name], b[name], rtol=1e-9, atol=0.0):
+                fail(f"[search] {tag}: float64 {name} on the card differs "
+                     f"from the CPU's by more than 1e-9 after sweep {k}")
+        differ = np.zeros(C, bool)
+        for name in names:
+            differ |= (a[name] != b[name]).any(axis=1)
+        rows = np.nonzero(differ)[0]
+        if len(rows):
+            ra = bev.evaluate_batch(*(a[x][rows] for x in names))
+            rb = bev.evaluate_batch(*(b[x][rows] for x in names))
+            if not (np.array_equal(ra.feasible, rb.feasible) and np.allclose(
+                    ra.objective, rb.objective, rtol=1e-12, atol=0.0)):
+                fail(f"[search] {tag}: float64 incumbents of chains "
+                     f"{rows.tolist()} differ between card and CPU after "
+                     f"sweep {k}, and not by a tie")
+            ties += len(rows)
+    return ties
+
+
+def _search_sa(em, obj, arch, shape, smi_line):
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline
+    from repro_torch.core.optimizers.common import incumbent_better
+    from repro_torch.core.platform import V5E_POD
+    tag = f"(c) annealing {SEARCH_SA['backend']} {em}/{obj}"
+    problem = pipeline.make_problem(arch, shape, V5E_POD,
+                                    SEARCH_SA["backend"], obj, em)
+    seed, other = SEARCH_SA["seeds"]
+    kw = dict(chains=SEARCH_SA["chains"])
+    plan, r1, wall, n_launch = _timed_search(problem, "annealing", seed=seed,
+                                             **kw)
+    _check_entry_point(tag, plan, "annealing", dict(kw, seed=seed),
+                       arch=arch, shape=shape, platform=V5E_POD,
+                       backend=SEARCH_SA["backend"], objective=obj,
+                       exec_model=em)
+    _, r2, _, _ = _timed_search(problem, "annealing", seed=seed, **kw)
+    _, r3, _, _ = _timed_search(problem, "annealing", seed=other, **kw)
+    points = SEARCH_SA["chains"] * SEARCH_SA["sweeps"]
+    if r1.points != points:
+        fail(f"[search] {tag}: {r1.points} points, not {points}")
+    if (_design(r2.variables), r2.history, r2.points) != \
+            (_design(r1.variables), r1.history, r1.points):
+        fail(f"[search] {tag}: two runs with seed {seed} differ")
+    if (_design(r3.variables), r3.history) == \
+            (_design(r1.variables), r1.history):
+        fail(f"[search] {tag}: seed {other} walked seed {seed}'s path")
+    if n_launch <= 0:
+        fail(f"[search] {tag}: the sweeps launched segred 0 times")
+    ev = r1.evaluation                 # the float64 scalar reference's
+    last = r1.history[-1][1]
+    if ev.feasible and abs(last - ev.objective) > F32_RTOL * abs(ev.objective):
+        fail(f"[search] {tag}: the incumbent's float32 objective {last!r} "
+             f"is not the reference's {ev.objective!r}")
+
+    # the same schedule straight through DeviceSA.run with every host sync
+    # an error; its incumbent is the optimiser's
+    sa, v0, ev0, scale, temps = _sa_start(problem, "cuda", torch.float32)
+    state = sa.init_state(v0, ev0, SEARCH_SA["chains"], seed)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, temps, _ = sa.run(state, temps, scale, 0.98, 1.0,
+                                 SEARCH_SA["sweeps"])
+    except RuntimeError as err:
+        fail(f"[search] {tag}: a sweep synchronised with the host: {err}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    best = None
+    for v, o, f in sa.best_variables(state):
+        if best is None or incumbent_better(f, o, best[2], best[1]):
+            best = (v, o, f)
+    if _design(best[0]) != _design(r1.variables):
+        fail(f"[search] {tag}: the sync-free run's incumbent differs from "
+             f"the optimiser's")
+    # every chain's incumbent, feasible or not, re-evaluated in float64 by
+    # the numpy engine: feasibility equal, the card's float32 objective at
+    # the float32 contract
+    bev = problem.batched()
+    chains = sa.best_variables(state)
+    want = bev.evaluate_batch(*bev.pack([v for v, _, _ in chains]))
+    objs = np.array([o for _, o, _ in chains])
+    feas = np.array([f for _, _, f in chains])
+    if not np.array_equal(feas, want.feasible):
+        fail(f"[search] {tag}: the incumbents' feasibility on the card "
+             f"differs from the numpy engine's in chains "
+             f"{np.nonzero(feas != want.feasible)[0].tolist()}")
+    rel = np.abs(objs - want.objective) / np.abs(want.objective)
+    if not rel.max() <= F32_RTOL:
+        fail(f"[search] {tag}: an incumbent's float32 objective is "
+             f"{rel.max():.3g} from the numpy engine's float64 value "
+             f"(chain {int(rel.argmax())}, limit {F32_RTOL})")
+    ties = _sa_float64_card_vs_cpu(problem, tag)
+    row = {"request": tag, "points": r1.points,
+           "objective": plan.objective_value, "feasible": ev.feasible,
+           "history": _history(r1.history), "wall_s": wall,
+           "points_per_s": r1.points / wall, "segred_launches": n_launch,
+           "float64_incumbent_ties": ties, "device": smi_line}
+    say("search", f"{tag}: {r1.points} points, objective "
+                  f"{plan.objective_value!r} (feasible {ev.feasible}), "
+                  f"history {len(r1.history)}; seed {seed} twice identical, "
+                  f"seed {other} another path; no host sync in "
+                  f"{SEARCH_SA['sweeps']} sweeps; {len(chains)} incumbents "
+                  f"equal to the numpy engine's float64 re-evaluation; "
+                  f"float64 card equal to CPU "
+                  f"over every sweep ({ties} incumbent ties); wall "
+                  f"{wall:.3f} s, {row['points_per_s']:.0f} points/s; segred "
+                  f"launches {n_launch}; {smi_line}")
+    return row
+
+
+def phase_search(smi_line):
+    """Brute force and multi-chain SA through ``optimise_mapping`` on the
+    card at full width (tinyllama-1.1b / train_4k / V5E_POD)."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    arch = get_arch("tinyllama-1.1b")
+    shape = SHAPES_BY_NAME["train_4k"]
+    runs = [_search_bf(req, arch, shape, smi_line) for req in SEARCH_BF]
+    runs += [_search_sa(req["exec_model"], req["objective"], arch, shape,
+                        smi_line) for req in REQUESTS]
+    return runs, sum(r["segred_launches"] for r in runs)
+
+
 def _lm_batch(vocab, batch, seq, seed):
     import torch
     from repro_torch.models import convert
@@ -1223,6 +1550,57 @@ def phase_profile(runs):
     return out
 
 
+def phase_profile_search(search):
+    """Brute force (a) and (b) and SA on spmd/latency once more under
+    torch.profiler: device busy time, its idle share against the
+    unprofiled wall time of the same request in phase 5, and segred's
+    device time."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.core.pipeline import optimise_mapping
+    from repro_torch.core.platform import V5E_POD
+    arch, shape = get_arch("tinyllama-1.1b"), SHAPES_BY_NAME["train_4k"]
+    sa_req = REQUESTS[1]
+    calls = [(search[i], dict(optimiser="brute_force", backend=req["backend"],
+                              objective=req["objective"],
+                              exec_model=req["exec_model"], **req["kw"]))
+             for i, req in enumerate(SEARCH_BF)]
+    sa_tag = f"spmd {sa_req['exec_model']}/{sa_req['objective']}"
+    calls.append((next(r for r in search if r["request"].startswith("(c)")
+                       and r["request"].endswith(sa_tag)),
+                  dict(optimiser="annealing", backend=SEARCH_SA["backend"],
+                       objective=sa_req["objective"],
+                       exec_model=sa_req["exec_model"],
+                       chains=SEARCH_SA["chains"],
+                       seed=SEARCH_SA["seeds"][0])))
+    out = []
+    for row, kw in calls:
+        wall, dev, by_name = _profile(lambda: optimise_mapping(
+            arch, shape, V5E_POD, engine="torch", **kw))
+        device_s = sum(tot for tot, _ in by_name.values()) * 1e-6
+        seg = [v for k, v in by_name.items() if _is_segred(k)]
+        rec = {"request": row["request"], "profiled_wall_s": wall,
+               "wall_s": row["wall_s"], "device_s": device_s,
+               "device_events": len(dev),
+               "idle_share": (1.0 - device_s / row["wall_s"]) if dev
+               else None,
+               "segred_device_s": sum(v[0] for v in seg) * 1e-6,
+               "segred_events": sum(v[1] for v in seg), "top": _top(by_name)}
+        out.append(rec)
+        if not dev:
+            say("profile", f"{row['request']}: the profiler traced no device "
+                           f"activity: device time not measured")
+            continue
+        say("profile", f"{row['request']}: {len(dev)} device events, device "
+                       f"busy {device_s:.4f} s of {row['wall_s']:.3f} s wall "
+                       f"(idle share {rec['idle_share']:.4f}); profiled wall "
+                       f"{wall:.3f} s; segred {rec['segred_device_s']:.5f} s "
+                       f"in {rec['segred_events']} launches")
+        for top in rec["top"]:
+            say("profile", f"  {top['device_s']:.5f} s  x{top['count']}  "
+                           f"{top['name']}")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1235,11 +1613,13 @@ def main() -> None:
     wkv_rows = phase_wkv6(yardsticks)
     flash_rows = phase_flash()
     runs, launches = phase_main()
+    search, search_launches = phase_search(smi_line)
     model, batch, lm = phase_lm()
     dense_model, dense_batch, dense = phase_lm_dense()
     profiled = None
     if "--profile" in sys.argv[1:]:
         profiled = {"mapping": phase_profile(runs),
+                    "search": phase_profile_search(search),
                     "segred": phase_profile_segred(yardsticks),
                     "lm": phase_profile_lm("lm", model, batch, lm,
                                            "wkv6_chunk_kernel"),
@@ -1258,7 +1638,7 @@ def main() -> None:
         "name": "segred", "route": "cuda",
         "source": "src/repro_torch/csrc/segred.cu",
         "replaces": "src/repro/core/accel/pallas_segred.py:31",
-        "launches": launches,
+        "launches": launches + search_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1289,7 +1669,8 @@ def main() -> None:
         "build": {name: {k: info[k] for k in ("seconds", "cached", "ptxas")}
                   for name, info in build.items()},
         "segred": rows, "wkv6": wkv_rows, "flash_attn": flash_rows,
-        "main": runs, "lm": lm, "lm_dense": dense, "profile": profiled, "kernels": kernels}, indent=1))
+        "main": runs, "search": search, "lm": lm, "lm_dense": dense,
+        "profile": profiled, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -7,8 +7,10 @@
                    hand-written CUDA kernel (``csrc/segred.cu``) and its
                    plain PyTorch version.
   eval_torch.py    the batched evaluate array program (``_eval_core``).
-  search_loops.py  the rule-based optimiser's greedy descent as a host loop
-                   over one device step per move.
+  search_loops.py  the optimisers' device search: brute-force chunk decode
+                   and evaluation, the multi-chain SA sweep loop, and the
+                   rule-based greedy descent as a host loop over one
+                   device step per move.
 
 Engine registry
 ---------------

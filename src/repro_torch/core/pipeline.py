@@ -6,23 +6,34 @@
 
 The same entry point as ``repro.core.pipeline.optimise_mapping``. Engines:
 
-  engine   rule_based
-  -------  ------------------------------------------------------------
-  scalar   scalar probe loop (reference)
-  numpy    each greedy step's probe set as one batched host evaluate
-  torch    each greedy step on the card (default; ``auto`` is torch):
-           probe construction, evaluation and selection as device tensor
-           steps, the partition-time reduction in the hand-written segred
-           kernel. Identical move sequence, design and history to scalar.
+  engine   brute_force           annealing             rule_based
+  -------  --------------------  --------------------  --------------------
+  scalar   one point at a time   one chain (or         scalar probe loop
+           (reference)           tempering), host      (reference)
+  numpy    chunked host batches  tempering, one batch  each greedy step's
+                                 a sweep, host         probes as one batch
+  torch    chunk decode and      multi-chain sweeps    each greedy step on
+           evaluation on the     on the card, one      the card
+           card, one readback    readback a block
+           a chunk
+
+``torch`` is the default, and ``auto`` resolves to it.
+
+On the card the partition-time reduction of every candidate with a cut
+runs in the hand-written segred kernel. Brute force's torch engine returns
+the numpy engine's optimum, point count and history; rule-based walks the
+scalar reference's move sequence; annealing is deterministic for a seed.
+``annealing`` also takes ``engine="host"`` (the host engines by chain
+count).
 
 The torch engine runs on ``cuda``; ``device="cpu"`` (an optimiser kwarg)
 runs it on the CPU with the kernels' plain versions. With no card and no
 ``device="cpu"`` it raises ``EngineUnavailable``. Returned ``Evaluation``
 objects are always re-derived through the float64 scalar reference.
 
-Only the rule-based optimiser is ported in this slice; brute force and
-annealing raise ``NotImplementedError`` naming the ROADMAP item that ports
-them. Portfolios, co-mapping and the baseline plan are still to port too.
+Portfolios (ROADMAP Queue 1, item 7), the ``devices=`` axis (item 9),
+co-mapping (item 10) and the baseline plan are still to port;
+``brute_force(devices=...)`` raises ``NotImplementedError`` naming item 9.
 """
 from __future__ import annotations
 
@@ -33,7 +44,7 @@ from repro_torch.core.backends import BACKENDS
 from repro_torch.core.exporter import ShardingPlan, export_plan
 from repro_torch.core.graph_builder import build_hdgraph
 from repro_torch.core.objectives import Problem
-from repro_torch.core.optimizers import NOT_PORTED, OPTIMIZERS
+from repro_torch.core.optimizers import OPTIMIZERS
 from repro_torch.core.perfmodel import ModelOptions
 from repro_torch.core.platform import Platform, V5E_POD
 from repro_torch.obs import trace as _trace
@@ -74,13 +85,9 @@ def optimise_mapping(arch: ArchConfig, shape: ShapeSpec,
     """``engine`` selects the evaluation engine (see the module docstring);
     None keeps the optimiser's default (torch). Remaining kwargs go to the
     optimiser entry point (``device=`` among them)."""
-    if optimiser in NOT_PORTED:
-        raise NotImplementedError(
-            f"optimiser {optimiser!r} is not ported to torch yet "
-            f"({NOT_PORTED[optimiser]})")
     if optimiser not in OPTIMIZERS:
         raise ValueError(f"unknown optimiser {optimiser!r}; known: "
-                         f"{sorted(OPTIMIZERS) + sorted(NOT_PORTED)}")
+                         f"{sorted(OPTIMIZERS)}")
     with _trace.span("pipeline.optimise_mapping", arch=arch.name,
                      optimiser=optimiser, backend=backend,
                      objective=objective, engine=engine or "default"):

@@ -1,10 +1,13 @@
 """The port's copies of the JAX package's host layers agree with the
 originals: configs, graph builder, platform, backends, performance model,
-constraints, objectives, the numpy engine, the exporter, telemetry and
-Algorithm 2's merge loop.
+constraints, objectives, the numpy engine, the exporter, telemetry,
+Algorithm 2's merge loop, brute force's and annealing's host engines and the
+brute-force chunk helpers.
 
 Two holds: the source text of every verbatim copy equals its original once
-the package name is mapped back, and the copies compute the same things
+the package name is mapped back (for the optimisers whose engine dispatch
+changes, and for the numpy helpers of the device search loops, statement by
+statement), and the copies compute the same things
 (``BatchedEvaluator`` arrays, scalar ``Problem.evaluate``, ``build_hdgraph``
 node fields) on every registered architecture (reduced) x train / prefill
 / decode x backend.
@@ -72,6 +75,64 @@ def test_partial_copy_matches_original_outside_its_change(rel):
         assert port[port.index(marker):] == orig[orig.index(marker):]
     else:
         assert port[:port.index(marker)] == orig[:orig.index(marker)]
+
+
+#: copies whose engine dispatch changes: every top-level statement but the
+#: module docstring and the named ones must equal the original's, in order
+#: (the jax engine's entry becomes the torch engine's)
+PIECEWISE = {
+    "core/optimizers/brute_force.py": {"optimise"},
+    "core/optimizers/annealing.py": {"optimise", "_optimise_jax",
+                                     "_optimise_torch"},
+}
+
+
+def _statements(text):
+    """(name, source) of each top-level statement after the docstring."""
+    import ast
+    lines = text.splitlines()
+    body = ast.parse(text).body
+    if body and isinstance(body[0], ast.Expr) and \
+            isinstance(body[0].value, ast.Constant):
+        body = body[1:]
+    out = []
+    for node in body:
+        name = getattr(node, "name", None)
+        if isinstance(node, (ast.Assign, ast.AnnAssign)):
+            target = node.targets[0] if isinstance(node, ast.Assign) \
+                else node.target
+            name = getattr(target, "id", None)
+        start = min([node.lineno] + [d.lineno for d in getattr(
+            node, "decorator_list", [])])
+        out.append((name, "\n".join(lines[start - 1:node.end_lineno])))
+    return out
+
+
+@pytest.mark.parametrize("rel", sorted(PIECEWISE))
+def test_piecewise_copy_matches_original_outside_its_dispatch(rel):
+    orig, port = _texts(rel)
+    keep = lambda text: [st for st in _statements(text)
+                         if st[0] not in PIECEWISE[rel]]
+    assert keep(port) == keep(orig)
+    names = {name for name, _ in _statements(port)}
+    assert "optimise" in names and "_optimise_jax" not in names
+
+
+#: numpy helpers of JAX modules that the port copies into its own module of
+#: the same path, statement by statement
+HELPER_VERBATIM = {
+    "core/accel/search_loops.py": ("_pow2ceil", "_construction_tables",
+                                   "chunk_descriptor",
+                                   "absorb_improvements"),
+}
+
+
+@pytest.mark.parametrize("rel,name", [(rel, name) for rel, names in
+                                      sorted(HELPER_VERBATIM.items())
+                                      for name in names])
+def test_helper_copy_matches_original(rel, name):
+    assert _top_level_source(SRC / "repro_torch" / rel, name) == \
+        _top_level_source(SRC / "repro" / rel, name)
 
 
 def _node_fields(graph):

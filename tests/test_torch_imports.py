@@ -42,6 +42,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "repro_torch.core.accel.search_loops",
                 "repro_torch.core.accel.lowering",
                 "repro_torch.core.optimizers.rule_based",
+                "repro_torch.core.optimizers.brute_force",
+                "repro_torch.core.optimizers.annealing",
                 "repro_torch.obs.metrics", "repro_torch.obs.trace",
                 "repro_torch.kernels.ref", "repro_torch.kernels.ops",
                 "repro_torch.kernels.rwkv6_scan",

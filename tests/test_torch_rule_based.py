@@ -128,19 +128,22 @@ def test_engine_selection_and_errors(monkeypatch):
         rule_based(port, engine="numpy", device="cpu")
     arch = reduced(get_arch("tinyllama-1.1b"))
     shape = ShapeSpec("train_tiny", 256, 16, "train")
-    for name, item in (("brute_force", "item 3"), ("annealing", "item 5")):
-        with pytest.raises(NotImplementedError, match=item):
-            optimise_mapping(arch, shape, optimiser=name)
+    # the sharded brute-force chunks are still to port (Queue 1, item 9)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        optimise_mapping(arch, shape, optimiser="brute_force", devices=2,
+                         device="cpu")
     with pytest.raises(ValueError, match="unknown optimiser"):
         optimise_mapping(arch, shape, optimiser="genetic")
     # no card and no device="cpu": the default engine raises, it does not
-    # carry on on the CPU (auto and the default both resolve to torch)
+    # carry on on the CPU (auto and the default both resolve to torch),
+    # for each of the three optimisers
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for kw in ({}, {"engine": "auto"}, {"engine": "torch"}):
         with pytest.raises(EngineUnavailable):
             rule_based(port, **kw)
-    with pytest.raises(EngineUnavailable):
-        optimise_mapping(arch, shape)
+    for name in ("rule_based", "brute_force", "annealing"):
+        with pytest.raises(EngineUnavailable):
+            optimise_mapping(arch, shape, optimiser=name)
 
 
 @pytest.mark.parametrize("mode", ["train", "decode"])
