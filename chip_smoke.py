@@ -38,11 +38,13 @@ phase's failure is caught while the run goes on:
               (dh 128 and 32) and the dense LM phase's shape (B=2, S=4096,
               32 heads over 4 KV heads of 64, causal) in bfloat16 and
               float32, each timed beside scaled_dot_product_attention
-  4. main     ``repro_torch.core.pipeline.optimise_mapping`` on tinyllama-1.1b
-              / train_4k / V5E_POD with the rule-based optimiser and the torch
-              engine, for two requests; each must equal the port's numpy
-              engine (points, variables, history, objective) and the JAX
-              package's recorded values, and must have launched segred
+  4. main     the rule-based optimiser with the torch engine on
+              tinyllama-1.1b / train_4k / V5E_POD, for two requests, timed
+              at the optimiser's entry point; each must equal the port's
+              numpy engine (points, variables, history, objective) and the
+              JAX package's recorded values, must have launched segred, and
+              ``repro_torch.core.pipeline.optimise_mapping`` must return its
+              plan
   5. search   the other two optimisers' entry points with the torch engine
               on the same arch, shape and platform (each timed call's plan
               equal to ``optimise_mapping``'s for the request): brute force
@@ -62,7 +64,24 @@ phase's failure is caught while the run goes on:
               every sweep (objectives within 1e-9); wall, points/s and
               segred launches of each request beside the card's name and
               power limit
-  6. lm       ``repro_torch.models.model.Model(rwkv6-1.6b, use_flash=True)``
+  6. fleet    ``repro_torch.core.pipeline.optimise_portfolio(engine="torch")``
+              over the ten registry archs at train_4k, platforms
+              alternating V5E_POD / V5E_2POD and objectives alternating
+              throughput / latency, timed once a part with its ``results``:
+              (a) rule-based, spmd / streaming, tinyllama-1.1b listed twice
+              (coalesced once), every lane equal to the numpy engine (run
+              after the timed runs, in worker processes), three lanes
+              bitwise their per-problem torch run, segred once at [P, n]
+              and once at [P x probes, n] a lockstep step; (b) SA, spmd,
+              64 chains x 342 sweeps, every lane bitwise its per-problem
+              torch run and its incumbent the numpy engine's in float64,
+              segred once a sweep a bucket; (c) brute force, megatron,
+              one-cut sets, 16,384 points a problem, every lane equal to
+              the numpy engine and bitwise its per-problem torch run,
+              segred once a chunk with a cut for a whole bucket; each with
+              its buckets, segred's shapes and kernel, and the walls and
+              points/s of the portfolio and of the per-problem loop
+  7. lm       ``repro_torch.models.model.Model(rwkv6-1.6b, use_flash=True)``
               at full width: (a) the first 2 layers with float32 weights from
               the seeded numpy recipe, B=1, T=128, held to the JAX package's
               record (loss 1e-4 relative, sampled logits 1e-3 absolute);
@@ -79,7 +98,7 @@ phase's failure is caught while the run goes on:
               fixed 6e-2, see PERF.md); (c) the (b) weights in float32, all
               24 layers: the kernel forward held to the plain-WKV float32
               forward (logits 1e-3 abs and rel, loss 1e-5 relative)
-  7. lm-dense ``Model(tinyllama-1.1b, use_flash=True)`` at full width, the
+  8. lm-dense ``Model(tinyllama-1.1b, use_flash=True)`` at full width, the
               same two checks with flash attention in the kernel: (a) 2
               layers, float32 recipe weights, B=1, T=128, held to the JAX
               record ``DENSE_RECORD``; (b) all 22 layers in bfloat16 at B=2,
@@ -88,8 +107,9 @@ phase's failure is caught while the run goes on:
               (1e-3 relative) and the logits within 1.5 times that model's
               distance from the same model with attention in float64
 
-  8. profile (only with ``--profile``) the first mapping request, each
-              [search] request (SA: spmd/latency) and one forward of each LM
+  9. profile (only with ``--profile``) the first mapping request, each
+              [search] request (SA: spmd/latency), [fleet] (b) and (c), and
+              one forward of each LM
               once more under ``torch.profiler``: device busy time, the idle
               share, the kernel's share and the kernels that take the most
               device time, beside the wall time; and
@@ -169,9 +189,12 @@ SEARCH_SA = {"backend": "spmd", "chains": 64, "sweeps": 342, "seeds": (0, 1)}
 #: float32 agreement of recorded objectives with the float64 reference
 F32_RTOL = 1e-5
 
-#: the main path's shape, a brute-force chunk's, one node a row, and the
-#: shapes of [search]: a brute-force chunk of (a) and the SA chains of (c)
-SEGRED_SHAPES = ((28, 47), (65536, 47), (64, 1), (1024, 47), (64, 47))
+#: the main path's shape, a brute-force chunk's, one node a row, the
+#: shapes of [search]: a brute-force chunk of (a) and the SA chains of (c),
+#: and of [fleet]: the probe rows of all ten lanes of (a), the largest
+#: fleet launch, and the chains of all ten lanes of (b)
+SEGRED_SHAPES = ((28, 47), (65536, 47), (64, 1), (1024, 47), (64, 47),
+                 (2170, 163), (640, 163))
 
 #: wkv6 check shapes (B, T, H, hs) and decay ranges: tests/test_kernels.py's
 #: WKV shapes, a strong-decay case, decays with exact zeros and near 1e-30,
@@ -727,45 +750,27 @@ def _history(points):
 
 
 def phase_main():
-    import torch
     from repro_torch.configs import SHAPES_BY_NAME, get_arch
     from repro_torch.core import pipeline
-    from repro_torch.core.accel import segred
     from repro_torch.core.platform import V5E_POD
 
     arch = get_arch("tinyllama-1.1b")
     shape = SHAPES_BY_NAME["train_4k"]
-    # keep the optimiser's result inside optimise_mapping (the plan holds
-    # folds per kind, not per node), so the one timed run is the one compared
-    rule_based = pipeline.OPTIMIZERS["rule_based"]
-    seen = []
-
-    def keep(problem, **kw):
-        seen.append(rule_based(problem, **kw))
-        return seen[-1]
-
     launches = 0
     runs = []
     for req in REQUESTS:
         em, obj = req["exec_model"], req["objective"]
         tag = f"{em}/{obj}"
-        ref = rule_based(pipeline.make_problem(arch, shape, V5E_POD, "spmd",
-                                               obj, em), engine="numpy")
-        seen.clear()
-        pipeline.OPTIMIZERS["rule_based"] = keep
-        try:
-            segred.LAUNCHES = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            plan = pipeline.optimise_mapping(
-                arch, shape, V5E_POD, optimiser="rule_based", objective=obj,
-                exec_model=em, engine="torch")
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            n_launch = segred.LAUNCHES
-        finally:
-            pipeline.OPTIMIZERS["rule_based"] = rule_based
-        (got,) = seen
+        problem = pipeline.make_problem(arch, shape, V5E_POD, "spmd", obj, em)
+        ref = pipeline.OPTIMIZERS["rule_based"](
+            pipeline.make_problem(arch, shape, V5E_POD, "spmd", obj, em),
+            engine="numpy")
+        # the timed run is the optimiser's own call; optimise_mapping's plan
+        # for the same request must be this run's
+        plan, got, wall, n_launch = _timed_search(problem, "rule_based")
+        _check_entry_point(f"[main] {tag}", plan, "rule_based", {},
+                           arch=arch, shape=shape, platform=V5E_POD,
+                           backend="spmd", objective=obj, exec_model=em)
         points, history = got.points, _history(got.history)
         if n_launch <= 0:
             fail(f"{tag}: the main path launched the segred kernel 0 times")
@@ -793,8 +798,8 @@ def phase_main():
         say("main", f"{tag}: {points} points, objective "
                     f"{plan.objective_value!r}, {len(plan.partitions)} "
                     f"partitions, history {len(history)}; equal to numpy "
-                    f"engine and JAX record; wall {wall:.3f} s; segred "
-                    f"launches {n_launch}")
+                    f"engine and JAX record, and to optimise_mapping's plan; "
+                    f"wall {wall:.3f} s; segred launches {n_launch}")
     return runs, launches
 
 
@@ -820,14 +825,14 @@ def _timed_search(problem, optimiser, **kw):
     return plan, result, wall, launches
 
 
-def _check_entry_point(tag, plan, optimiser, req_kw, **kw):
+def _check_entry_point(label, plan, optimiser, req_kw, **kw):
     """``optimise_mapping`` with the torch engine on the card must return
     the plan of the optimiser's own call."""
     from repro_torch.core import pipeline
     got = pipeline.optimise_mapping(optimiser=optimiser, engine="torch",
                                     **kw, **req_kw)
     if got != plan:
-        fail(f"[search] {tag}: optimise_mapping's plan (objective "
+        fail(f"{label}: optimise_mapping's plan (objective "
              f"{got.objective_value!r}) differs from the optimiser's "
              f"({plan.objective_value!r})")
 
@@ -855,7 +860,8 @@ def _search_bf(req, arch, shape, smi_line):
     numpy_wall = time.perf_counter() - t0
     plan, got, wall, n_launch = _timed_search(problem, "brute_force",
                                               **req["kw"])
-    _check_entry_point(tag, plan, "brute_force", req["kw"], arch=arch,
+    _check_entry_point(f"[search] {tag}", plan, "brute_force", req["kw"],
+                       arch=arch,
                        shape=shape, platform=V5E_POD, backend=req["backend"],
                        objective=req["objective"],
                        exec_model=req["exec_model"])
@@ -982,7 +988,8 @@ def _search_sa(em, obj, arch, shape, smi_line):
     kw = dict(chains=SEARCH_SA["chains"])
     plan, r1, wall, n_launch = _timed_search(problem, "annealing", seed=seed,
                                              **kw)
-    _check_entry_point(tag, plan, "annealing", dict(kw, seed=seed),
+    _check_entry_point(f"[search] {tag}", plan, "annealing",
+                       dict(kw, seed=seed),
                        arch=arch, shape=shape, platform=V5E_POD,
                        backend=SEARCH_SA["backend"], objective=obj,
                        exec_model=em)
@@ -1071,6 +1078,345 @@ def phase_search(smi_line):
     runs += [_search_sa(req["exec_model"], req["objective"], arch, shape,
                         smi_line) for req in REQUESTS]
     return runs, sum(r["segred_launches"] for r in runs)
+
+
+#: [fleet]: the ten registry archs at train_4k, platforms alternating
+#: V5E_POD / V5E_2POD and objectives alternating throughput / latency, one
+#: portfolio a part through ``optimise_portfolio(engine="torch")``: (a)
+#: rule-based on the spmd backend, streaming, with tinyllama-1.1b listed
+#: twice (coalesced once), every lane equal to the numpy engine and the
+#: ``torch_loop`` lanes to their per-problem torch run; (b) SA on the spmd
+#: backend, 64 chains on the default schedule, every lane equal to its
+#: per-problem torch run; (c) brute force on the megatron backend with cut
+#: sets of one cut, ``max_points`` a problem, every lane equal to the numpy
+#: engine and to its per-problem torch run
+FLEET = {
+    "shape": "train_4k",
+    "rb": {"backend": "spmd", "exec_model": "streaming",
+           "duplicate": "tinyllama-1.1b",
+           "torch_loop": ("llama3.2-1b", "tinyllama-1.1b",
+                          "jamba-1.5-large-398b"), "kw": {}},
+    "sa": {"backend": "spmd", "exec_model": "spmd",
+           "kw": {"seed": 0, "chains": 64}, "sweeps": 342},
+    "bf": {"backend": "megatron", "exec_model": "spmd",
+           "kw": {"include_cuts": True, "max_cuts": 1,
+                  "max_points": 16384}},
+}
+#: N n^2 at most for segred's thread-an-output kernel (``csrc/segred.cu``)
+SEGRED_OUTPUT_COMPARES = 1 << 22
+
+
+def _fleet_specs(cfg, extra=()):
+    """(arch name, platform name, objective) of each problem of a [fleet]
+    part, in portfolio order."""
+    from repro_torch.configs import ARCHS
+    names = sorted(ARCHS) + list(extra)
+    return [(n, ("V5E_POD", "V5E_2POD")[i % 2],
+             ("throughput", "latency")[i % 2]) for i, n in enumerate(names)]
+
+
+def _fleet_problem(cfg, spec):
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.core import pipeline, platform
+    name, plat, obj = spec
+    return pipeline.make_problem(get_arch(name),
+                                 SHAPES_BY_NAME[FLEET["shape"]],
+                                 getattr(platform, plat), cfg["backend"], obj,
+                                 cfg["exec_model"])
+
+
+def _numpy_reference(part, optimiser, spec):
+    """The numpy engine's result for one [fleet] problem (run in a worker
+    process): (points, history, design, objective)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.core.optimizers import OPTIMIZERS
+    cfg = FLEET[part]
+    r = OPTIMIZERS[optimiser](_fleet_problem(cfg, spec), engine="numpy",
+                              **cfg["kw"])
+    return r.points, _history(r.history), _design(r.variables), \
+        r.evaluation.objective
+
+
+class FleetReferences:
+    """The numpy engine's runs of [fleet] (a) and (c), every lane, in
+    spawned worker processes (at most 8). They start after the last timed
+    run of [fleet] and run while the card does [lm] and [lm-dense], whose
+    times are the card's; ``check`` waits for them and holds each lane of
+    the fleet to its reference. ``stop`` ends every worker."""
+
+    def __init__(self, pending):
+        import multiprocessing
+        self.pending = pending
+        tasks = [(row["part"], row["optimiser"], spec)
+                 for row, _, _, specs, _ in pending for spec in specs]
+        self.t0 = time.perf_counter()
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            min(8, len(tasks)))
+        self.jobs = [self.pool.starmap_async(
+            _numpy_reference, [(row["part"], row["optimiser"], spec)
+                               for spec in specs])
+            for row, _, _, specs, _ in pending]
+
+    def check(self):
+        for (row, tag, exact, specs, results), job in zip(self.pending,
+                                                          self.jobs):
+            for spec, r, (points, history, design, objective) in zip(
+                    specs, results, job.get(timeout=1200)):
+                same_hist = _history(r.history) == history if exact \
+                    else _same_history(r.history, history)
+                if (r.points, _design(r.variables),
+                        r.evaluation.objective) != \
+                        (points, design, objective) or not same_hist:
+                    fail(f"[fleet] {tag} {spec[0]}: {r.points} points, "
+                         f"history {_history(r.history)} differ from the "
+                         f"numpy engine's {points}, {history}")
+            row["numpy_wall_s"] = time.perf_counter() - self.t0
+            say("fleet", f"{tag} {row['optimiser']}: every one of the "
+                         f"{len(specs)} lanes equal to the numpy engine "
+                         f"(points, design, history"
+                         + ("" if exact else " indices, objectives at "
+                            f"{F32_RTOL}") + f"; the references ran in "
+                         f"worker processes beside [lm] and [lm-dense], "
+                         f"{row['numpy_wall_s']:.1f} s)")
+
+    def stop(self):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def _timed_on_card(fn):
+    """(fn(), wall seconds ending in a synchronize, segred launches, segred
+    launches by [N, n]); the counts are set to 0 just before the call."""
+    import torch
+    from repro_torch.core.accel import segred
+    torch.cuda.synchronize()
+    segred.LAUNCHES = 0
+    segred.SHAPES.clear()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0, segred.LAUNCHES,
+            dict(segred.SHAPES))
+
+
+def _segred_routes(shapes):
+    """'[N, n] x count (kernel)' for each launch shape."""
+    return ", ".join(
+        f"[{N}, {n}] x{c} ("
+        f"{'staged' if N * n * n > SEGRED_OUTPUT_COMPARES else 'output'})"
+        for (N, n), c in sorted(shapes.items()))
+
+
+def _same_result(a, b):
+    return (a.points, _design(a.variables), a.history,
+            a.evaluation.objective) == (b.points, _design(b.variables),
+                                        b.history, b.evaluation.objective)
+
+
+def _fleet_part(part, optimiser, smi_line, extra=()):
+    """One [fleet] part: ``optimise_portfolio`` timed on the card, its plans
+    checked against its results; returns the row with the unique problems,
+    their specs and results."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.core import pipeline, platform
+    from repro_torch.core.accel import fleet
+    from repro_torch.core.accel.lowering import problem_fingerprint
+    from repro_torch.core.exporter import export_plan
+    from repro_torch.obs import metrics
+    cfg = FLEET[part]
+    specs = _fleet_specs(cfg, extra)
+    problems = [_fleet_problem(cfg, s) for s in specs]
+    metrics.reset()
+    results = []
+    plans, wall, launches, shapes = _timed_on_card(
+        lambda: pipeline.optimise_portfolio(
+            [get_arch(n) for n, _, _ in specs],
+            SHAPES_BY_NAME[FLEET["shape"]],
+            [getattr(platform, pl) for _, pl, _ in specs],
+            backend=cfg["backend"], optimiser=optimiser,
+            objective=[o for _, _, o in specs],
+            exec_model=cfg["exec_model"], engine="torch", results=results,
+            **cfg["kw"]))
+    coalesced = metrics.counter("pipeline.portfolio.coalesced").value
+    first = {}
+    for i, p in enumerate(problems):
+        first.setdefault(problem_fingerprint(p), i)
+    unique = sorted(first.values())
+    if coalesced != len(problems) - len(unique):
+        fail(f"[fleet] ({part}): pipeline.portfolio.coalesced is "
+             f"{coalesced}, not {len(problems) - len(unique)}")
+    for i, (p, r, plan) in enumerate(zip(problems, results, plans)):
+        if r is not results[first[problem_fingerprint(p)]]:
+            fail(f"[fleet] ({part}): {specs[i][0]} was searched again, "
+                 f"not coalesced with its duplicate")
+        if plan != export_plan(p.graph, r.variables, p.platform,
+                               p.exec_model, r.evaluation):
+            fail(f"[fleet] ({part}): the plan of {specs[i][0]} is not its "
+                 f"result's")
+    if launches <= 0:
+        fail(f"[fleet] ({part}): the fleet launched segred 0 times")
+    u_problems = [problems[i] for i in unique]
+    buckets = fleet.bucket_indices(u_problems,
+                                   tiered=optimiser == "brute_force")
+    return {"part": part, "optimiser": optimiser, "problems": len(problems),
+            "unique": len(unique), "buckets": len(buckets),
+            "bucket_lists": buckets, "unique_problems": u_problems,
+            "unique_specs": [specs[i] for i in unique],
+            "results": [results[i] for i in unique], "wall_s": wall,
+            "segred_launches": launches, "segred_shapes": shapes,
+            "coalesced": coalesced,
+            "points": sum(results[i].points for i in unique),
+            "device": smi_line}
+
+
+def _fleet_loop(optimiser, problems, **kw):
+    """The per-problem torch runs of ``problems`` on the card: (results,
+    wall, launches)."""
+    from repro_torch.core.optimizers import OPTIMIZERS
+    out, wall, launches, _ = _timed_on_card(lambda: [
+        OPTIMIZERS[optimiser](p, engine="torch", **kw) for p in problems])
+    return out, wall, launches
+
+
+def _fleet_report(row, loop_wall, loop_points, loop_launches, loop_lanes,
+                  checks):
+    row.update({"loop_wall_s": loop_wall, "loop_points": loop_points,
+                "loop_segred_launches": loop_launches,
+                "loop_lanes": loop_lanes,
+                "points_per_s": row["points"] / row["wall_s"],
+                "loop_points_per_s": loop_points / loop_wall})
+    say("fleet", f"({row['part']}) {row['optimiser']}: {row['problems']} "
+                 f"problems, {row['unique']} unique (coalesced "
+                 f"{row['coalesced']}), {row['buckets']} bucket(s) "
+                 f"{row['bucket_lists']}; {checks}; optimise_portfolio wall "
+                 f"{row['wall_s']:.3f} s, {row['points']} points, "
+                 f"{row['points_per_s']:.0f} points/s; per-problem loop of "
+                 f"{loop_lanes} lane(s) {loop_wall:.3f} s, {loop_points} "
+                 f"points, {row['loop_points_per_s']:.0f} points/s; segred "
+                 f"launches {row['segred_launches']} (loop {loop_launches}): "
+                 f"{_segred_routes(row['segred_shapes'])}; "
+                 f"{row['device']}")
+    row.pop("unique_problems")
+    row["segred_shapes"] = {f"{N}x{n}": c
+                            for (N, n), c in row["segred_shapes"].items()}
+    return row
+
+
+def _fleet_rb(smi_line, pending):
+    """(a) rule-based: every lane equal to the numpy engine; the
+    ``torch_loop`` lanes equal to their per-problem torch run; one
+    evaluation of all lanes at the incumbent and one of all probes a step,
+    one segred launch each."""
+    cfg = FLEET["rb"]
+    row = _fleet_part("rb", "rule_based", smi_line,
+                      extra=(cfg["duplicate"],))
+    lanes = [(p, r) for p, r in zip(row["unique_problems"], row["results"])
+             if p.graph.arch_name in cfg["torch_loop"]]
+    loop, loop_wall, loop_launches = _fleet_loop(
+        "rule_based", [p for p, _ in lanes], **cfg["kw"])
+    for (p, r), lp in zip(lanes, loop):
+        if not _same_result(r, lp):
+            fail(f"[fleet] (a) {p.graph.arch_name}: the fleet's result "
+                 f"differs from the per-problem torch run's")
+    pending.append((row, "(a)", True, row["unique_specs"], row["results"]))
+    sizes = sorted(row["segred_shapes"].items())
+    if len(sizes) != 2 or sizes[0][1] != sizes[1][1] or \
+            sizes[0][0][0] != row["unique"]:
+        fail(f"[fleet] (a): segred launches "
+             f"{_segred_routes(row['segred_shapes'])} are not one [P, n] "
+             f"and one [P x probes, n] a step")
+    row["steps"] = sizes[0][1]
+    return _fleet_report(
+        row, loop_wall, sum(r.points for r in loop), loop_launches,
+        len(lanes), f"{len(lanes)} lanes bitwise their per-problem torch "
+                    f"run; {row['steps']} lockstep steps, two launches "
+                    f"each")
+
+
+def _fleet_sa(smi_line):
+    """(b) SA: every lane bitwise its per-problem torch run; one launch a
+    sweep a bucket; each lane's incumbent re-evaluated in float64."""
+    cfg = FLEET["sa"]
+    row = _fleet_part("sa", "annealing", smi_line)
+    unique, results = row["unique_problems"], row["results"]
+    loop, loop_wall, loop_launches = _fleet_loop("annealing", unique,
+                                                 **cfg["kw"])
+    for p, r, lp in zip(unique, results, loop):
+        if not _same_result(r, lp):
+            fail(f"[fleet] (b) {p.graph.arch_name}: the fleet's result "
+                 f"differs from the per-problem torch run's")
+        if r.points != cfg["kw"]["chains"] * cfg["sweeps"]:
+            fail(f"[fleet] (b) {p.graph.arch_name}: {r.points} points")
+        bev = p.batched()
+        got = bev.evaluate_batch(*bev.pack([r.variables]))
+        last = r.history[-1][1]
+        if bool(got.feasible[0]) != r.evaluation.feasible or (
+                r.evaluation.feasible and abs(last - got.objective[0])
+                > F32_RTOL * abs(got.objective[0])):
+            fail(f"[fleet] (b) {p.graph.arch_name}: the incumbent's "
+                 f"float32 objective {last!r} / feasibility are not the "
+                 f"numpy engine's {got.objective[0]!r}")
+    if row["segred_launches"] != row["buckets"] * cfg["sweeps"]:
+        fail(f"[fleet] (b): {row['segred_launches']} segred launches, not "
+             f"one a sweep a bucket ({row['buckets'] * cfg['sweeps']})")
+    return _fleet_report(row, loop_wall, sum(r.points for r in loop),
+                         loop_launches, len(unique),
+                         "every lane bitwise its per-problem torch run, "
+                         "each incumbent the numpy engine's in float64; "
+                         "one launch a sweep")
+
+
+def _bf_bucket_rows(members, batch_size=4096):
+    """A brute-force bucket's launch shape: (members x chunk rows, padded
+    node count), the chunk being the bucket's largest cut set rounded up to
+    a power of two, at most ``batch_size``."""
+    import math
+    per_set = max(math.prod(len(m) for m in p.backend.space(
+        p.graph, p.platform)[1]) for p in members)
+    rows = 1
+    while rows < per_set:
+        rows *= 2
+    return (len(members) * min(batch_size, rows),
+            max(len(p.graph.nodes) for p in members))
+
+
+def _fleet_bf(smi_line, pending):
+    """(c) brute force: every lane equal to the numpy engine and to its
+    per-problem torch run; one launch a chunk of a cut set with a cut for
+    the whole bucket."""
+    cfg = FLEET["bf"]
+    row = _fleet_part("bf", "brute_force", smi_line)
+    unique, results = row["unique_problems"], row["results"]
+    loop, loop_wall, loop_launches = _fleet_loop("brute_force", unique,
+                                                 **cfg["kw"])
+    for p, r, lp in zip(unique, results, loop):
+        if not _same_result(r, lp):
+            fail(f"[fleet] (c) {p.graph.arch_name}: the fleet's result "
+                 f"differs from the per-problem torch run's")
+    pending.append((row, "(c)", False, row["unique_specs"], row["results"]))
+    # every launch serves a whole bucket: [members x chunk rows, n_pad]
+    whole = {_bf_bucket_rows([unique[i] for i in b])
+             for b in row["bucket_lists"]}
+    if not set(row["segred_shapes"]) <= whole:
+        fail(f"[fleet] (c): segred launches "
+             f"{_segred_routes(row['segred_shapes'])} are not one a chunk "
+             f"for a whole bucket ({sorted(whole)})")
+    return _fleet_report(row, loop_wall, sum(r.points for r in loop),
+                         loop_launches, len(unique),
+                         "every lane bitwise its per-problem torch run; one "
+                         "launch a chunk with a cut for a whole bucket")
+
+
+def phase_fleet(smi_line):
+    """``optimise_portfolio(engine="torch")`` over the ten registry archs
+    at full width, for the three optimisers: (runs, segred launches, the
+    numpy engine's references started in worker processes)."""
+    pending = []
+    runs = [_fleet_rb(smi_line, pending), _fleet_sa(smi_line),
+            _fleet_bf(smi_line, pending)]
+    return runs, sum(r["segred_launches"] for r in runs), \
+        FleetReferences(pending)
 
 
 def _lm_batch(vocab, batch, seq, seed):
@@ -1601,6 +1947,52 @@ def phase_profile_search(search):
     return out
 
 
+def phase_profile_fleet(fleet):
+    """[fleet] (b) and (c) once more under torch.profiler: device busy
+    time and its idle share against the unprofiled wall of the same
+    ``optimise_portfolio`` call in phase 6, and segred's device time. (a)
+    runs for minutes, too long a trace to take."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.core import pipeline, platform
+    out = []
+    for row in fleet:
+        if row["part"] == "rb":
+            continue
+        cfg = FLEET[row["part"]]
+        specs = _fleet_specs(cfg)
+        wall, dev, by_name = _profile(lambda: pipeline.optimise_portfolio(
+            [get_arch(n) for n, _, _ in specs],
+            SHAPES_BY_NAME[FLEET["shape"]],
+            [getattr(platform, pl) for _, pl, _ in specs],
+            backend=cfg["backend"], optimiser=row["optimiser"],
+            objective=[o for _, _, o in specs],
+            exec_model=cfg["exec_model"], engine="torch", **cfg["kw"]))
+        device_s = sum(tot for tot, _ in by_name.values()) * 1e-6
+        seg = [v for k, v in by_name.items() if _is_segred(k)]
+        rec = {"part": row["part"], "profiled_wall_s": wall,
+               "wall_s": row["wall_s"], "device_s": device_s,
+               "device_events": len(dev),
+               "idle_share": (1.0 - device_s / row["wall_s"]) if dev
+               else None,
+               "segred_device_s": sum(v[0] for v in seg) * 1e-6,
+               "segred_events": sum(v[1] for v in seg), "top": _top(by_name)}
+        out.append(rec)
+        if not dev:
+            say("profile", f"[fleet] ({row['part']}): the profiler traced no "
+                           f"device activity: device time not measured")
+            continue
+        say("profile", f"[fleet] ({row['part']}): {len(dev)} device events, "
+                       f"device busy {device_s:.4f} s of {row['wall_s']:.3f} "
+                       f"s wall (idle share {rec['idle_share']:.4f}); "
+                       f"profiled wall {wall:.3f} s; segred "
+                       f"{rec['segred_device_s']:.5f} s in "
+                       f"{rec['segred_events']} launches")
+        for top in rec["top"]:
+            say("profile", f"  {top['device_s']:.5f} s  x{top['count']}  "
+                           f"{top['name']}")
+    return out
+
+
 def main() -> None:
     if not (SRC / "repro_torch" / "__init__.py").is_file():
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
@@ -1614,12 +2006,20 @@ def main() -> None:
     flash_rows = phase_flash()
     runs, launches = phase_main()
     search, search_launches = phase_search(smi_line)
-    model, batch, lm = phase_lm()
-    dense_model, dense_batch, dense = phase_lm_dense()
+    fleet, fleet_launches, references = phase_fleet(smi_line)
+    try:
+        model, batch, lm = phase_lm()
+        dense_model, dense_batch, dense = phase_lm_dense()
+        references.check()
+    finally:
+        references.stop()
+    for row in fleet:
+        row.pop("results")
     profiled = None
     if "--profile" in sys.argv[1:]:
         profiled = {"mapping": phase_profile(runs),
                     "search": phase_profile_search(search),
+                    "fleet": phase_profile_fleet(fleet),
                     "segred": phase_profile_segred(yardsticks),
                     "lm": phase_profile_lm("lm", model, batch, lm,
                                            "wkv6_chunk_kernel"),
@@ -1638,7 +2038,7 @@ def main() -> None:
         "name": "segred", "route": "cuda",
         "source": "src/repro_torch/csrc/segred.cu",
         "replaces": "src/repro/core/accel/pallas_segred.py:31",
-        "launches": launches + search_launches,
+        "launches": launches + search_launches + fleet_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -1669,7 +2069,8 @@ def main() -> None:
         "build": {name: {k: info[k] for k in ("seconds", "cached", "ptxas")}
                   for name, info in build.items()},
         "segred": rows, "wkv6": wkv_rows, "flash_attn": flash_rows,
-        "main": runs, "search": search, "lm": lm, "lm_dense": dense,
+        "main": runs, "search": search, "fleet": fleet, "lm": lm,
+        "lm_dense": dense,
         "profile": profiled, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

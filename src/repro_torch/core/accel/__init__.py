@@ -10,7 +10,14 @@
   search_loops.py  the optimisers' device search: brute-force chunk decode
                    and evaluation, the multi-chain SA sweep loop, and the
                    rule-based greedy descent as a host loop over one
-                   device step per move.
+                   device step per move. Every body takes a leading
+                   problem ("lane") axis; one problem is the P = 1 case.
+  fleet.py         multi-problem sweeps: bucket problems by program shape,
+                   pad and stack their device tensors, and run the
+                   brute-force chunks / SA sweeps / rule-based descents of
+                   a whole bucket as one lane-stacked pass (one segred
+                   launch a step), per-problem results bitwise those of
+                   the per-problem loop (``pipeline.optimise_portfolio``).
 
 Engine registry
 ---------------

@@ -28,9 +28,20 @@ evaluation is bitwise the unpadded one.
 a ``DeviceArrays`` passed as numpy (``{k: np.asarray(v) for k, v in
 arrays._asdict().items()}``) and returns the port's ``DeviceTensors``, so
 a test can give both engines identical constants.
+
+Lanes: the device search bodies take ``DeviceTensors`` with a leading
+problem ("lane") axis on every field. ``stack_tensors`` stacks the padded
+tensors of a fleet bucket's problems; ``lift_tensors`` gives one problem's
+tensors a lane axis of 1, which is how the single-problem engines call the
+same bodies.
+
+``problem_fingerprint`` (a copy of the JAX package's) is the content hash
+by which ``optimise_portfolio`` coalesces duplicate problems.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 from dataclasses import dataclass
 from typing import Mapping, NamedTuple, Optional, Tuple
 
@@ -212,6 +223,86 @@ def build_static_spec(bev, *, use_kernel: bool = True,
     )
 
 
+#: BatchedEvaluator arrays covered by ``problem_fingerprint``, in
+#: ``DeviceArrays`` field order — exactly the per-node/per-edge content
+#: ``lower_program`` ships to the device. Extending ``DeviceArrays`` with
+#: a new lowered array means extending this tuple too (the fingerprint
+#: must keep covering everything that shapes engine results).
+FINGERPRINT_ARRAYS: Tuple[str, ...] = (
+    "flops", "weight_bytes", "act_bytes", "inner_bytes", "state_bytes",
+    "kv_bytes", "carry_bytes", "node_d", "reshard_full", "batch", "rows",
+    "cols", "fm_width", "col_div", "kv_limit", "ep_topk", "scan_group",
+    "internal", "elementwise", "weight_stream", "cut_allowed",
+)
+
+#: kind index sets covered by ``problem_fingerprint`` (the
+#: ``DeviceArrays.m_*`` mask sources).
+FINGERPRINT_INDEX_SETS: Tuple[str, ...] = (
+    "i_attn", "i_head", "i_tp", "i_ep", "i_vocab", "i_vhead", "i_kv",
+    "i_carry",
+)
+
+
+@_trace.traced("accel.problem_fingerprint")
+def problem_fingerprint(problem) -> str:
+    """Canonical content hash of a Problem's lowered program (no jax).
+
+    Routes through ``build_static_spec`` — the same keying path that
+    shapes the XLA executable cache and that ``recompile_lint`` audits —
+    and then hashes every array ``lower_program`` would ship to the
+    device: the per-node workload quantities, kind index sets, scan
+    pairs, platform scalar vector, fold-realisability cube/lut, plus the
+    Eq. 5 objective flag and Eq. 4 amortisation factor. Two problems
+    with equal fingerprints lower to bit-identical device programs (at
+    any shared padding — padding is excluded on purpose: it is
+    bit-neutral by the lowering contract, so it cannot change results),
+    and therefore every deterministic engine returns identical designs,
+    objectives and histories for them. This is the keying contract the
+    service cache (``repro/service/cache.py``) and the
+    ``optimise_portfolio`` duplicate-coalescing fix rely on
+    (docs/service.md documents it).
+
+    Accepts a ``Problem`` (lowers via its cached ``batched()``) or a
+    ``BatchedEvaluator`` directly. Pure host, jax-free.
+    """
+    bev = problem.batched() if hasattr(problem, "batched") else problem
+    # the engine knob (use_kernel) changes the kernel route, not the
+    # computed design — pin it so the fingerprint is a problem identity,
+    # not an engine configuration
+    static = build_static_spec(bev, use_kernel=False)
+    h = hashlib.sha256(b"repro.problem_fingerprint.v1")
+    h.update(repr(dataclasses.astuple(static)).encode())
+
+    def feed(name: str, a: np.ndarray) -> None:
+        a = np.ascontiguousarray(a)
+        h.update(f"|{name}:{a.dtype.str}:{a.shape}|".encode())
+        h.update(a.tobytes())
+
+    for name in FINGERPRINT_ARRAYS:
+        feed(name, np.asarray(getattr(bev, name)))
+    for name in FINGERPRINT_INDEX_SETS:
+        feed(name, np.asarray(sorted(getattr(bev, name)), np.int64))
+    feed("scan_pairs", np.asarray(bev.scan_pairs, np.int64))
+    feed("platform_scalars", np.asarray(bev.platform_scalars(),
+                                        np.float64))
+    try:
+        table, lut, cap = _realizability_table(bev)
+        feed("real_table", table.astype(np.uint8))
+        feed("val_lut", np.asarray(lut, np.int64))
+        h.update(f"|cap:{int(cap)}|".encode())
+    except EngineUnavailable:
+        # menus too large for a dense cube (numpy-engine-only platforms):
+        # the fold menu plus the platform name pins the candidate space —
+        # a false MISS is possible across renamed-but-identical platforms,
+        # a false HIT is not
+        feed("fold_values", np.asarray(bev.platform.fold_values(),
+                                       np.int64))
+        h.update(f"|platform:{bev.platform.name}|".encode())
+    h.update(f"|objective:{bev.objective}"
+             f"|amort:{float(bev.batch_amortisation)!r}|".encode())
+    return h.hexdigest()
+
+
 def _tensor(a, *, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """numpy (or Python scalar) -> tensor on ``device``: float kinds take
     ``dtype``, integer kinds int64, bools bool."""
@@ -352,5 +443,18 @@ def tensors_from_numpy(fields: Mapping[str, np.ndarray], *, device=None,
                             for k in DeviceTensors._fields})
 
 
+def lift_tensors(A: DeviceTensors) -> DeviceTensors:
+    """One problem's tensors with a lane axis of 1 (views, no copy)."""
+    return DeviceTensors(*(x[None] for x in A))
+
+
+def stack_tensors(arrays) -> DeviceTensors:
+    """Equally shaped (padded) problems' tensors stacked on a new leading
+    lane axis, field by field."""
+    return DeviceTensors(*(torch.stack(xs) for xs in zip(*arrays)))
+
+
 __all__ = ["StaticSpec", "DeviceTensors", "build_static_spec",
-           "lower_program", "tensors_from_numpy", "MAX_TABLE_VALUES"]
+           "lower_program", "tensors_from_numpy", "lift_tensors",
+           "stack_tensors", "problem_fingerprint", "FINGERPRINT_ARRAYS",
+           "FINGERPRINT_INDEX_SETS", "MAX_TABLE_VALUES"]

@@ -11,7 +11,9 @@ On a CUDA tensor the wrapper launches the hand-written kernel
 (``csrc/segred.cu``, built at first use by ``cuda_build``) on the current
 stream, or raises; there is no fallback. Only a CPU tensor takes
 ``segmented_reduce_plain``. ``LAUNCHES`` counts kernel launches, so a run
-can show that the main path went through the kernel.
+can show that the main path went through the kernel, and ``SHAPES`` counts
+them by [N, n] (which tells which of the kernel's two routes ran: staged
+rows past N n^2 = 2^22, one thread an output below).
 
 At the descent's shapes ([28, 47]) a call's time is the wrapper's host
 work, so the wrapper keeps it small: the C entry point of each dtype is
@@ -20,6 +22,7 @@ a device context when the tensor's device is already the current one.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 
@@ -27,6 +30,8 @@ import torch
 
 #: kernel launches since import (or since a caller last set it to 0)
 LAUNCHES = 0
+#: the same launches by (N, n), until a caller clears it
+SHAPES: collections.Counter = collections.Counter()
 
 OPS = {"max": 0, "sum": 1}
 
@@ -112,8 +117,9 @@ def segmented_reduce(vals: torch.Tensor, pid: torch.Tensor,
         raise RuntimeError(f"segred kernel launch failed: CUDA error {err} "
                            f"(N={N}, n={n}, dtype={vals.dtype}, op={op})")
     LAUNCHES += 1
+    SHAPES[(N, n)] += 1
     return out
 
 
-__all__ = ["segmented_reduce", "segmented_reduce_plain", "LAUNCHES", "OPS",
-           "MAX_N"]
+__all__ = ["segmented_reduce", "segmented_reduce_plain", "LAUNCHES",
+           "SHAPES", "OPS", "MAX_N"]

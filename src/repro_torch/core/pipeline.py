@@ -4,7 +4,11 @@
                             optimiser="rule_based", objective="throughput",
                             engine="torch")
 
-The same entry point as ``repro.core.pipeline.optimise_mapping``. Engines:
+    plans = optimise_portfolio(["tinyllama-1.1b", "llama3.2-1b"], shape,
+                               [V5E_POD, V5E_2POD],         # per-model
+                               optimiser="brute_force")     # platforms
+
+The same entry points as ``repro.core.pipeline``'s. Engines:
 
   engine   brute_force           annealing             rule_based
   -------  --------------------  --------------------  --------------------
@@ -31,13 +35,18 @@ runs it on the CPU with the kernels' plain versions. With no card and no
 ``device="cpu"`` it raises ``EngineUnavailable``. Returned ``Evaluation``
 objects are always re-derived through the float64 scalar reference.
 
-Portfolios (ROADMAP Queue 1, item 7), the ``devices=`` axis (item 9),
-co-mapping (item 10) and the baseline plan are still to port;
-``brute_force(devices=...)`` raises ``NotImplementedError`` naming item 9.
+``optimise_portfolio`` searches many (arch, platform, objective) problems
+as fleets on the card (``core/accel/fleet.py``): each bucket of problems is
+one lane-stacked device program, with per-problem results bitwise those of
+a per-problem ``optimise_mapping`` loop.
+
+The ``devices=`` axis (ROADMAP Queue 1, item 9) and co-mapping (item 10)
+are still to port; ``devices=`` raises ``NotImplementedError`` naming item
+9.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence
 
 from repro_torch.configs.base import ArchConfig, ShapeSpec
 from repro_torch.core.backends import BACKENDS
@@ -47,6 +56,7 @@ from repro_torch.core.objectives import Problem
 from repro_torch.core.optimizers import OPTIMIZERS
 from repro_torch.core.perfmodel import ModelOptions
 from repro_torch.core.platform import Platform, V5E_POD
+from repro_torch.obs import metrics as _metrics
 from repro_torch.obs import trace as _trace
 
 
@@ -103,4 +113,159 @@ def optimise_mapping(arch: ArchConfig, shape: ShapeSpec,
                                exec_model, result.evaluation)
 
 
-__all__ = ["make_problem", "optimise_mapping"]
+#: the kwargs each fleet takes; anything else runs the per-problem loop
+FLEET_KWARGS = {
+    "brute_force": {"include_cuts", "max_cuts", "max_points",
+                    "batch_size", "device"},
+    "annealing": {"seed", "k_start", "k_min", "cooling", "max_iters",
+                  "objective_scale", "chains", "device"},
+    "rule_based": {"multi_start", "device"},
+}
+
+
+def optimise_portfolio(archs: Sequence, shapes,
+                       platform=V5E_POD,
+                       backend: str = "spmd",
+                       optimiser: str = "brute_force",
+                       objective: str = "throughput",
+                       exec_model: str = "streaming",
+                       opts: Optional[ModelOptions] = None,
+                       engine: str = "auto",
+                       devices: Optional[int] = None,
+                       results: Optional[list] = None,
+                       **optimiser_kwargs) -> List[ShardingPlan]:
+    """Optimise a whole portfolio of (architecture, platform) pairs in one
+    fleet sweep.
+
+    ``archs`` is a sequence of ``ArchConfig``s (or registry names);
+    ``shapes`` is one ``ShapeSpec`` applied to every arch, or a matching
+    sequence; ``platform`` and ``objective`` are likewise one value or a
+    matching per-problem sequence. Platform scalars, fold tables, the Eq. 5
+    objective and the Eq. 4 amortisation factor are device data, so a
+    mixed portfolio shares buckets like a uniform one. Mismatched sequence
+    lengths raise ``ValueError`` up front.
+
+    With the ``torch`` engine (the ``auto`` default) the problems are
+    bucketed by program shape and each bucket is searched by one
+    lane-stacked device program (``core/accel/fleet.py``), for all three
+    optimisers; per-problem optima, objectives and improvement histories
+    are identical to looping ``optimise_mapping(engine="torch")``. Other
+    engines, and kwargs outside a fleet's set (``time_budget_s`` in
+    particular, whose wall-clock truncation a lockstep bucket cannot
+    reproduce), run the per-problem loop. Returns one ``ShardingPlan`` per
+    arch, in input order.
+
+    Duplicate problems — equal ``lowering.problem_fingerprint`` — are
+    optimised ONCE and the result fans out to every duplicate (the
+    ``pipeline.portfolio.coalesced`` counter records how many); budgeted
+    calls keep per-duplicate runs. ``results``, a list, receives each
+    problem's ``OptimResult`` (points and improvement history, which a plan
+    does not hold), in input order. ``devices=`` is ROADMAP Queue 1, item
+    9, and raises ``NotImplementedError``.
+    """
+    from repro_torch.configs import get_arch
+    from repro_torch.core.accel import resolve_engine
+
+    if devices is not None:
+        raise NotImplementedError(
+            f"devices={devices}: sharded fleets are not ported to torch yet "
+            f"(ROADMAP Queue 1, item 9)")
+    # Validate the three input sequences up front with clear errors: a
+    # silent zip truncation (or a bare string iterated character by
+    # character) used to surface as a baffling failure deep in the
+    # lowering instead of here.
+    if isinstance(archs, str):
+        raise ValueError(
+            f"archs must be a sequence of ArchConfigs or registry names; "
+            f"got the single string {archs!r} — wrap it in a list")
+    archs = [get_arch(a) if isinstance(a, str) else a for a in archs]
+    if isinstance(shapes, str) or isinstance(platform, str):
+        which = "shapes" if isinstance(shapes, str) else "platform"
+        raise ValueError(f"{which} must not be a string — a string would "
+                         f"iterate character by character; pass a "
+                         f"ShapeSpec/Platform or a sequence of them")
+    shapes = [shapes] * len(archs) if isinstance(shapes, ShapeSpec) \
+        else list(shapes)
+    if len(shapes) != len(archs):
+        raise ValueError(f"got {len(archs)} archs but {len(shapes)} "
+                         f"shapes; pass one ShapeSpec or exactly one "
+                         f"shape per arch")
+    platforms = [platform] * len(archs) if isinstance(platform, Platform) \
+        else list(platform)
+    if len(platforms) != len(archs):
+        raise ValueError(f"got {len(archs)} archs but {len(platforms)} "
+                         f"platforms; pass one Platform or exactly one "
+                         f"platform per arch")
+    objectives = [objective] * len(archs) if isinstance(objective, str) \
+        else list(objective)
+    if len(objectives) != len(archs):
+        raise ValueError(f"got {len(archs)} archs but {len(objectives)} "
+                         f"objectives; pass one objective or exactly one "
+                         f"per arch")
+    if optimiser not in OPTIMIZERS:
+        raise ValueError(f"unknown optimiser {optimiser!r}; known: "
+                         f"{sorted(OPTIMIZERS)}")
+    with _trace.span("pipeline.make_problems", count=len(archs)):
+        problems = [make_problem(a, s, p, backend, o, exec_model, opts)
+                    for a, s, p, o in
+                    zip(archs, shapes, platforms, objectives)]
+    eng = resolve_engine(engine)
+    # Identical Problems — same canonical lowered program, hence identical
+    # results from every deterministic engine — are searched once and the
+    # result fans out. Wall-clock budgets are the one knob that makes
+    # re-runs non-identical, so budgeted calls keep per-duplicate runs.
+    alias_of: dict = {}
+    unique_idx = list(range(len(problems)))
+    if len(problems) > 1 and "time_budget_s" not in optimiser_kwargs:
+        from repro_torch.core.accel.lowering import problem_fingerprint
+        with _trace.span("pipeline.dedupe", problems=len(problems)):
+            first_at: dict = {}
+            unique_idx = []
+            for i, p in enumerate(problems):
+                fp = problem_fingerprint(p)
+                if fp in first_at:
+                    alias_of[i] = first_at[fp]
+                else:
+                    first_at[fp] = i
+                    unique_idx.append(i)
+        if alias_of:
+            _metrics.counter("pipeline.portfolio.coalesced").inc(
+                len(alias_of))
+    run_problems = [problems[i] for i in unique_idx]
+    if eng == "torch" and set(optimiser_kwargs) <= FLEET_KWARGS[optimiser]:
+        from repro_torch.core.accel.fleet import (
+            fleet_annealing,
+            fleet_brute_force,
+            fleet_rule_based,
+        )
+        runner = {"brute_force": fleet_brute_force,
+                  "annealing": fleet_annealing,
+                  "rule_based": fleet_rule_based}[optimiser]
+        with _trace.span("pipeline.optimise_portfolio.fleet",
+                         optimiser=optimiser,
+                         problems=len(run_problems)):
+            found = runner(run_problems, **optimiser_kwargs)
+        # the fleet runners bypass the optimiser entry points (which note
+        # their own results), so account for their results here
+        for r in found:
+            _metrics.note_result(r, engine="fleet")
+    else:
+        with _trace.span("pipeline.optimise_portfolio.loop",
+                         optimiser=optimiser, engine=eng,
+                         problems=len(run_problems)):
+            found = [OPTIMIZERS[optimiser](p, engine=eng, **optimiser_kwargs)
+                     for p in run_problems]
+    # fan the unique results back out over the duplicates, input order
+    pos = {orig: k for k, orig in enumerate(unique_idx)}
+    all_results = [found[pos[alias_of.get(i, i)]]
+                   for i in range(len(problems))]
+    if results is not None:
+        results.extend(all_results)
+    with _trace.span("pipeline.export_plans", count=len(all_results)):
+        return [export_plan(p.graph, r.variables, p.platform, exec_model,
+                            r.evaluation)
+                for p, r in zip(problems, all_results)]
+
+
+__all__ = ["make_problem", "optimise_mapping", "optimise_portfolio",
+           "FLEET_KWARGS"]

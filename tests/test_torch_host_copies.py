@@ -1,8 +1,9 @@
 """The port's copies of the JAX package's host layers agree with the
 originals: configs, graph builder, platform, backends, performance model,
 constraints, objectives, the numpy engine, the exporter, telemetry,
-Algorithm 2's merge loop, brute force's and annealing's host engines and the
-brute-force chunk helpers.
+Algorithm 2's merge loop, brute force's and annealing's host engines, the
+brute-force chunk helpers, the SA move tables, the fleet's host helpers and
+the problem fingerprint.
 
 Two holds: the source text of every verbatim copy equals its original once
 the package name is mapped back (for the optimisers whose engine dispatch
@@ -123,7 +124,12 @@ def test_piecewise_copy_matches_original_outside_its_dispatch(rel):
 HELPER_VERBATIM = {
     "core/accel/search_loops.py": ("_pow2ceil", "_construction_tables",
                                    "chunk_descriptor",
-                                   "absorb_improvements"),
+                                   "absorb_improvements", "build_sa_tables"),
+    "core/accel/fleet.py": ("NODE_TIER", "_node_tier", "_platform_pads",
+                            "_bucket_key", "bucket_key", "bucket_indices",
+                            "_BFMember", "_bucket_tables"),
+    "core/accel/lowering.py": ("FINGERPRINT_ARRAYS",
+                               "FINGERPRINT_INDEX_SETS"),
 }
 
 
@@ -133,6 +139,36 @@ HELPER_VERBATIM = {
 def test_helper_copy_matches_original(rel, name):
     assert _top_level_source(SRC / "repro_torch" / rel, name) == \
         _top_level_source(SRC / "repro" / rel, name)
+
+
+def _split_engine_pin(text):
+    """(the text without the statement that pins the engine knob and the
+    comment above it, that statement)."""
+    lines = text.splitlines()
+    i = next(k for k, line in enumerate(lines)
+             if "static = build_static_spec(" in line)
+    j = i
+    while not lines[j].rstrip().endswith(")"):
+        j += 1
+    k = i
+    while lines[k - 1].lstrip().startswith("#"):
+        k -= 1
+    return "\n".join(lines[:k] + lines[j + 1:]), "\n".join(lines[i:j + 1])
+
+
+def test_problem_fingerprint_copy_matches_original():
+    """``problem_fingerprint`` is the original's statement for statement,
+    except that it pins the port's engine knob (``use_kernel``) where the
+    original pins ``use_pallas`` and its interpret mode."""
+    rel = "core/accel/lowering.py"
+    port, port_pin = _split_engine_pin(
+        _top_level_source(SRC / "repro_torch" / rel, "problem_fingerprint"))
+    orig, orig_pin = _split_engine_pin(
+        _top_level_source(SRC / "repro" / rel, "problem_fingerprint"))
+    assert port == orig
+    assert port_pin.strip() == \
+        "static = build_static_spec(bev, use_kernel=False)"
+    assert "use_pallas=False" in orig_pin
 
 
 def _node_fields(graph):
