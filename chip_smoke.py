@@ -68,10 +68,13 @@ phase's failure is caught while the run goes on:
               over the ten registry archs at train_4k, platforms
               alternating V5E_POD / V5E_2POD and objectives alternating
               throughput / latency, timed once a part with its ``results``:
-              (a) rule-based, spmd / streaming, tinyllama-1.1b listed twice
+              (a) rule-based, spmd / streaming, every arch at full width
+              cut to at most 12 decoder and 12 encoder layers,
+              tinyllama-1.1b listed twice
               (coalesced once), every lane equal to the numpy engine (run
               after the timed runs, in worker processes), three lanes
-              bitwise their per-problem torch run, segred once at [P, n]
+              bitwise their per-problem torch run (each timed), segred
+              once at [P, n]
               and once at [P x probes, n] a lockstep step; (b) SA, spmd,
               64 chains x 342 sweeps, every lane bitwise its per-problem
               torch run and its incumbent the numpy engine's in float64,
@@ -81,7 +84,26 @@ phase's failure is caught while the run goes on:
               segred once a chunk with a cut for a whole bucket; each with
               its buckets, segred's shapes and kernel, and the walls and
               points/s of the portfolio and of the per-problem loop
-  7. lm       ``repro_torch.models.model.Model(rwkv6-1.6b, use_flash=True)``
+  7. comap    ``optimise_comapping(["tinyllama-1.1b", "llama3.2-1b"],
+              decode_32k, V5E_POD, optimiser="rule_based",
+              objective="weighted_throughput", engine="torch")``: the 15
+              splits of the 16-row data axis x 2 nets, 30 lanes at full
+              width and depth in one rule-based fleet call; split (12, 4),
+              134,803 points and a history of 5 as the numpy engine gives
+              them, and split, designs, objectives, points and history
+              equal to the numpy engine's run (in a worker process beside
+              phases 9 and 10); each plan's objective its lane's; segred
+              once at [30, n] and once at [30 x probes, n] a lockstep step
+  8. service  ``repro_torch.service.MappingServer`` on the card: phase 4's
+              two requests from 8 threads x 3 seeded submissions, each
+              response bitwise phase 4's direct run, from 2 engine runs
+              (the rest coalesced or cached) in lockstep rounds of one
+              descent call each; a streaming/latency request that joins
+              the streaming round after 3 rounds, equal to its own direct
+              run; one POST /v1/mapping and one POST /v1/comap on
+              127.0.0.1 (reduced nets), each equal to the direct call;
+              segred twice a descent step in each part
+  9. lm       ``repro_torch.models.model.Model(rwkv6-1.6b, use_flash=True)``
               at full width: (a) the first 2 layers with float32 weights from
               the seeded numpy recipe, B=1, T=128, held to the JAX package's
               record (loss 1e-4 relative, sampled logits 1e-3 absolute);
@@ -98,7 +120,7 @@ phase's failure is caught while the run goes on:
               fixed 6e-2, see PERF.md); (c) the (b) weights in float32, all
               24 layers: the kernel forward held to the plain-WKV float32
               forward (logits 1e-3 abs and rel, loss 1e-5 relative)
-  8. lm-dense ``Model(tinyllama-1.1b, use_flash=True)`` at full width, the
+  10. lm-dense ``Model(tinyllama-1.1b, use_flash=True)`` at full width, the
               same two checks with flash attention in the kernel: (a) 2
               layers, float32 recipe weights, B=1, T=128, held to the JAX
               record ``DENSE_RECORD``; (b) all 22 layers in bfloat16 at B=2,
@@ -107,7 +129,7 @@ phase's failure is caught while the run goes on:
               (1e-3 relative) and the logits within 1.5 times that model's
               distance from the same model with attention in float64
 
-  9. profile (only with ``--profile``) the first mapping request, each
+  11. profile (only with ``--profile``) the first mapping request, each
               [search] request (SA: spmd/latency), [fleet] (b) and (c), and
               one forward of each LM
               once more under ``torch.profiler``: device busy time, the idle
@@ -116,7 +138,9 @@ phase's failure is caught while the run goes on:
               segred's device time a launch beside its first design's, at
               the mapper's shape and a brute-force chunk's
 
-The line before the last is the kernels' JSON record; the last line is
+Each phase's wall is printed as it ends (``[wall]``), and all of them
+before the records. The line before the last is the kernels' JSON record;
+the last line is
 ``{"ok": true, "device": {...}}``. Longer records go to
 ``chiprun_out/chip_smoke.json``. Imports nothing of JAX or of ``repro``.
 """
@@ -191,10 +215,11 @@ F32_RTOL = 1e-5
 
 #: the main path's shape, a brute-force chunk's, one node a row, the
 #: shapes of [search]: a brute-force chunk of (a) and the SA chains of (c),
-#: and of [fleet]: the probe rows of all ten lanes of (a), the largest
-#: fleet launch, and the chains of all ten lanes of (b)
+#: of [fleet]: the probe rows of all ten lanes of (a) and the chains of all
+#: ten lanes of (b), and of [comap]: the incumbents and the probe rows of
+#: all 30 lanes
 SEGRED_SHAPES = ((28, 47), (65536, 47), (64, 1), (1024, 47), (64, 47),
-                 (2170, 163), (640, 163))
+                 (2170, 63), (640, 163), (30, 47), (1950, 47))
 
 #: wkv6 check shapes (B, T, H, hs) and decay ranges: tests/test_kernels.py's
 #: WKV shapes, a strong-decay case, decays with exact zeros and near 1e-30,
@@ -307,6 +332,26 @@ def fail(msg: str) -> None:
 
 def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+#: each phase's wall seconds, in the order the phases ran
+WALLS = {}
+
+
+class phase_wall:
+    """``with phase_wall(name):`` records the block's wall seconds in
+    ``WALLS`` and prints them."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            WALLS[self.name] = time.perf_counter() - self.t0
+            say("wall", f"{self.name}: {WALLS[self.name]:.1f} s")
 
 
 def cuda_ms(fn, iters: int, warmup: int = 5) -> float:
@@ -757,7 +802,7 @@ def phase_main():
     arch = get_arch("tinyllama-1.1b")
     shape = SHAPES_BY_NAME["train_4k"]
     launches = 0
-    runs = []
+    runs, results = [], {}
     for req in REQUESTS:
         em, obj = req["exec_model"], req["objective"]
         tag = f"{em}/{obj}"
@@ -790,6 +835,7 @@ def phase_main():
                  f"JAX package's ({req['points']}, {req['value']!r}, "
                  f"{req['partitions']}, {req['history']})")
         launches += n_launch
+        results[tag] = got
         runs.append({"request": tag, "points": points,
                      "objective": plan.objective_value,
                      "partitions": len(plan.partitions),
@@ -800,7 +846,7 @@ def phase_main():
                     f"partitions, history {len(history)}; equal to numpy "
                     f"engine and JAX record, and to optimise_mapping's plan; "
                     f"wall {wall:.3f} s; segred launches {n_launch}")
-    return runs, launches
+    return runs, launches, results
 
 
 def _timed_search(problem, optimiser, **kw):
@@ -1084,15 +1130,18 @@ def phase_search(smi_line):
 #: V5E_POD / V5E_2POD and objectives alternating throughput / latency, one
 #: portfolio a part through ``optimise_portfolio(engine="torch")``: (a)
 #: rule-based on the spmd backend, streaming, with tinyllama-1.1b listed
-#: twice (coalesced once), every lane equal to the numpy engine and the
-#: ``torch_loop`` lanes to their per-problem torch run; (b) SA on the spmd
+#: twice (coalesced once), every arch at full width and at most ``layers``
+#: decoder and encoder layers (a depth cut, so that the whole run keeps
+#: to its time aim; ``tools/fleet_rb_depth.py`` times (a) at several
+#: depths), every lane equal to the numpy engine and the ``torch_loop``
+#: lanes to their per-problem torch run; (b) SA on the spmd
 #: backend, 64 chains on the default schedule, every lane equal to its
 #: per-problem torch run; (c) brute force on the megatron backend with cut
 #: sets of one cut, ``max_points`` a problem, every lane equal to the numpy
 #: engine and to its per-problem torch run
 FLEET = {
     "shape": "train_4k",
-    "rb": {"backend": "spmd", "exec_model": "streaming",
+    "rb": {"backend": "spmd", "exec_model": "streaming", "layers": 12,
            "duplicate": "tinyllama-1.1b",
            "torch_loop": ("llama3.2-1b", "tinyllama-1.1b",
                           "jamba-1.5-large-398b"), "kw": {}},
@@ -1115,11 +1164,28 @@ def _fleet_specs(cfg, extra=()):
              ("throughput", "latency")[i % 2]) for i, n in enumerate(names)]
 
 
+def _fleet_arch(cfg, name):
+    """The registry arch ``name`` at full width, its depth cut to
+    ``cfg["layers"]`` where that is set (decoder and encoder layers each
+    at most that many; a hybrid keeps whole interleave periods)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    arch = get_arch(name)
+    layers = cfg.get("layers")
+    if not layers:
+        return arch
+    period = arch.attn_period
+    keep = max(period, layers // period * period)
+    return dataclasses.replace(
+        arch, num_layers=min(arch.num_layers, keep),
+        encoder_layers=min(arch.encoder_layers, layers))
+
+
 def _fleet_problem(cfg, spec):
-    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.configs import SHAPES_BY_NAME
     from repro_torch.core import pipeline, platform
     name, plat, obj = spec
-    return pipeline.make_problem(get_arch(name),
+    return pipeline.make_problem(_fleet_arch(cfg, name),
                                  SHAPES_BY_NAME[FLEET["shape"]],
                                  getattr(platform, plat), cfg["backend"], obj,
                                  cfg["exec_model"])
@@ -1138,51 +1204,59 @@ def _numpy_reference(part, optimiser, spec):
         r.evaluation.objective
 
 
-class FleetReferences:
-    """The numpy engine's runs of [fleet] (a) and (c), every lane, in
-    spawned worker processes (at most 8). They start after the last timed
-    run of [fleet] and run while the card does [lm] and [lm-dense], whose
-    times are the card's; ``check`` waits for them and holds each lane of
-    the fleet to its reference. ``stop`` ends every worker."""
+class References:
+    """The numpy engine's runs that [fleet] (a), (c) and [comap] are held
+    to, in spawned worker processes (at most 8). They start after the last
+    timed run of [service] and run while the card does [lm] and
+    [lm-dense], whose times are the card's; ``check`` waits for each and
+    hands its results to its check. ``stop`` ends every worker."""
 
-    def __init__(self, pending):
+    def __init__(self):
+        self.tasks = []
+
+    def add(self, fn, args, check):
+        """``check(results, seconds)`` gets ``[fn(*a) for a in args]``."""
+        self.tasks.append((fn, args, check))
+
+    def start(self):
         import multiprocessing
-        self.pending = pending
-        tasks = [(row["part"], row["optimiser"], spec)
-                 for row, _, _, specs, _ in pending for spec in specs]
         self.t0 = time.perf_counter()
         self.pool = multiprocessing.get_context("spawn").Pool(
-            min(8, len(tasks)))
-        self.jobs = [self.pool.starmap_async(
-            _numpy_reference, [(row["part"], row["optimiser"], spec)
-                               for spec in specs])
-            for row, _, _, specs, _ in pending]
+            min(8, sum(len(args) for _, args, _ in self.tasks)))
+        self.jobs = [self.pool.starmap_async(fn, args)
+                     for fn, args, _ in self.tasks]
 
     def check(self):
-        for (row, tag, exact, specs, results), job in zip(self.pending,
-                                                          self.jobs):
-            for spec, r, (points, history, design, objective) in zip(
-                    specs, results, job.get(timeout=1200)):
-                same_hist = _history(r.history) == history if exact \
-                    else _same_history(r.history, history)
-                if (r.points, _design(r.variables),
-                        r.evaluation.objective) != \
-                        (points, design, objective) or not same_hist:
-                    fail(f"[fleet] {tag} {spec[0]}: {r.points} points, "
-                         f"history {_history(r.history)} differ from the "
-                         f"numpy engine's {points}, {history}")
-            row["numpy_wall_s"] = time.perf_counter() - self.t0
-            say("fleet", f"{tag} {row['optimiser']}: every one of the "
-                         f"{len(specs)} lanes equal to the numpy engine "
-                         f"(points, design, history"
-                         + ("" if exact else " indices, objectives at "
-                            f"{F32_RTOL}") + f"; the references ran in "
-                         f"worker processes beside [lm] and [lm-dense], "
-                         f"{row['numpy_wall_s']:.1f} s)")
+        for (_, _, check), job in zip(self.tasks, self.jobs):
+            results = job.get(timeout=1200)
+            check(results, time.perf_counter() - self.t0)
 
     def stop(self):
         self.pool.terminate()
         self.pool.join()
+
+
+def _fleet_reference_check(row, tag, exact, specs, results):
+    """The check of one [fleet] part against its lanes' numpy references."""
+    def check(refs, seconds):
+        for spec, r, (points, history, design, objective) in zip(
+                specs, results, refs):
+            same_hist = _history(r.history) == history if exact \
+                else _same_history(r.history, history)
+            if (r.points, _design(r.variables), r.evaluation.objective) != \
+                    (points, design, objective) or not same_hist:
+                fail(f"[fleet] {tag} {spec[0]}: {r.points} points, "
+                     f"history {_history(r.history)} differ from the "
+                     f"numpy engine's {points}, {history}")
+        row["numpy_wall_s"] = seconds
+        say("fleet", f"{tag} {row['optimiser']}: every one of the "
+                     f"{len(specs)} lanes equal to the numpy engine "
+                     f"(points, design, history"
+                     + ("" if exact else " indices, objectives at "
+                        f"{F32_RTOL}") + f"; the references ran in "
+                     f"worker processes beside [lm] and [lm-dense], "
+                     f"{seconds:.1f} s)")
+    return check
 
 
 def _timed_on_card(fn):
@@ -1218,7 +1292,7 @@ def _fleet_part(part, optimiser, smi_line, extra=()):
     """One [fleet] part: ``optimise_portfolio`` timed on the card, its plans
     checked against its results; returns the row with the unique problems,
     their specs and results."""
-    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.configs import SHAPES_BY_NAME
     from repro_torch.core import pipeline, platform
     from repro_torch.core.accel import fleet
     from repro_torch.core.accel.lowering import problem_fingerprint
@@ -1231,7 +1305,7 @@ def _fleet_part(part, optimiser, smi_line, extra=()):
     results = []
     plans, wall, launches, shapes = _timed_on_card(
         lambda: pipeline.optimise_portfolio(
-            [get_arch(n) for n, _, _ in specs],
+            [_fleet_arch(cfg, n) for n, _, _ in specs],
             SHAPES_BY_NAME[FLEET["shape"]],
             [getattr(platform, pl) for _, pl, _ in specs],
             backend=cfg["backend"], optimiser=optimiser,
@@ -1271,12 +1345,17 @@ def _fleet_part(part, optimiser, smi_line, extra=()):
 
 
 def _fleet_loop(optimiser, problems, **kw):
-    """The per-problem torch runs of ``problems`` on the card: (results,
-    wall, launches)."""
+    """The per-problem torch runs of ``problems`` on the card, each timed
+    on its own: (results, wall, launches, each lane's wall)."""
     from repro_torch.core.optimizers import OPTIMIZERS
-    out, wall, launches, _ = _timed_on_card(lambda: [
-        OPTIMIZERS[optimiser](p, engine="torch", **kw) for p in problems])
-    return out, wall, launches
+    out, walls, launches = [], [], 0
+    for p in problems:
+        r, wall, n, _ = _timed_on_card(
+            lambda: OPTIMIZERS[optimiser](p, engine="torch", **kw))
+        out.append(r)
+        walls.append(wall)
+        launches += n
+    return out, sum(walls), launches, walls
 
 
 def _fleet_report(row, loop_wall, loop_points, loop_launches, loop_lanes,
@@ -1313,13 +1392,23 @@ def _fleet_rb(smi_line, pending):
                       extra=(cfg["duplicate"],))
     lanes = [(p, r) for p, r in zip(row["unique_problems"], row["results"])
              if p.graph.arch_name in cfg["torch_loop"]]
-    loop, loop_wall, loop_launches = _fleet_loop(
+    loop, loop_wall, loop_launches, lane_walls = _fleet_loop(
         "rule_based", [p for p, _ in lanes], **cfg["kw"])
+    row["loop_lane_walls_s"] = {p.graph.arch_name: w
+                                for (p, _), w in zip(lanes, lane_walls)}
+    say("fleet", "(a) per-problem torch loop, each lane's wall: " + ", ".join(
+        f"{p.graph.arch_name} ({len(p.graph.nodes)} nodes) {w:.3f} s"
+        for (p, _), w in zip(lanes, lane_walls)))
     for (p, r), lp in zip(lanes, loop):
         if not _same_result(r, lp):
             fail(f"[fleet] (a) {p.graph.arch_name}: the fleet's result "
                  f"differs from the per-problem torch run's")
-    pending.append((row, "(a)", True, row["unique_specs"], row["results"]))
+    pending.append((_numpy_reference,
+                    [("rb", "rule_based", spec)
+                     for spec in row["unique_specs"]],
+                    _fleet_reference_check(row, "(a)", True,
+                                           row["unique_specs"],
+                                           row["results"])))
     sizes = sorted(row["segred_shapes"].items())
     if len(sizes) != 2 or sizes[0][1] != sizes[1][1] or \
             sizes[0][0][0] != row["unique"]:
@@ -1340,8 +1429,8 @@ def _fleet_sa(smi_line):
     cfg = FLEET["sa"]
     row = _fleet_part("sa", "annealing", smi_line)
     unique, results = row["unique_problems"], row["results"]
-    loop, loop_wall, loop_launches = _fleet_loop("annealing", unique,
-                                                 **cfg["kw"])
+    loop, loop_wall, loop_launches, _ = _fleet_loop("annealing", unique,
+                                                    **cfg["kw"])
     for p, r, lp in zip(unique, results, loop):
         if not _same_result(r, lp):
             fail(f"[fleet] (b) {p.graph.arch_name}: the fleet's result "
@@ -1388,13 +1477,18 @@ def _fleet_bf(smi_line, pending):
     cfg = FLEET["bf"]
     row = _fleet_part("bf", "brute_force", smi_line)
     unique, results = row["unique_problems"], row["results"]
-    loop, loop_wall, loop_launches = _fleet_loop("brute_force", unique,
-                                                 **cfg["kw"])
+    loop, loop_wall, loop_launches, _ = _fleet_loop("brute_force", unique,
+                                                    **cfg["kw"])
     for p, r, lp in zip(unique, results, loop):
         if not _same_result(r, lp):
             fail(f"[fleet] (c) {p.graph.arch_name}: the fleet's result "
                  f"differs from the per-problem torch run's")
-    pending.append((row, "(c)", False, row["unique_specs"], row["results"]))
+    pending.append((_numpy_reference,
+                    [("bf", "brute_force", spec)
+                     for spec in row["unique_specs"]],
+                    _fleet_reference_check(row, "(c)", False,
+                                           row["unique_specs"],
+                                           row["results"])))
     # every launch serves a whole bucket: [members x chunk rows, n_pad]
     whole = {_bf_bucket_rows([unique[i] for i in b])
              for b in row["bucket_lists"]}
@@ -1408,15 +1502,387 @@ def _fleet_bf(smi_line, pending):
                          "launch a chunk with a cut for a whole bucket")
 
 
-def phase_fleet(smi_line):
+def phase_fleet(smi_line, references):
     """``optimise_portfolio(engine="torch")`` over the ten registry archs
-    at full width, for the three optimisers: (runs, segred launches, the
-    numpy engine's references started in worker processes)."""
-    pending = []
-    runs = [_fleet_rb(smi_line, pending), _fleet_sa(smi_line),
-            _fleet_bf(smi_line, pending)]
-    return runs, sum(r["segred_launches"] for r in runs), \
-        FleetReferences(pending)
+    at full width, for the three optimisers: (runs, segred launches); the
+    numpy engine's references of (a) and (c) are added to
+    ``references``."""
+    pending, runs = [], []
+    for part, run in (("a", lambda: _fleet_rb(smi_line, pending)),
+                      ("b", lambda: _fleet_sa(smi_line)),
+                      ("c", lambda: _fleet_bf(smi_line, pending))):
+        with phase_wall(f"fleet ({part})"):
+            runs.append(run())
+    for task in pending:
+        references.add(*task)
+    return runs, sum(r["segred_launches"] for r in runs)
+
+
+#: [comap]: two models served side by side on one pod, co-mapped by the
+#: rule-based optimiser over the full menu of splits of the 16-row data
+#: axis (15 splits x 2 nets = 30 lanes, at full width and depth, on
+#: sub-meshes of 1 to 15 rows); the numpy engine's result for it (the
+#: port's numpy engine run on a CPU, which is the JAX package's numpy
+#: engine copied): split, points and the length of the history
+COMAP = {"archs": ("tinyllama-1.1b", "llama3.2-1b"), "shape": "decode_32k",
+         "backend": "spmd", "exec_model": "streaming",
+         "optimiser": "rule_based", "objective": "weighted_throughput",
+         "lanes": 30, "split": (12, 4), "points": 134803, "history": 5}
+
+#: [service]: phase 4's two requests from ``threads`` threads of
+#: ``submissions`` seeded submissions each; the late joiner enters the
+#: streaming lockstep round after ``late_after_rounds`` rounds; the HTTP
+#: requests use reduced nets at train_4k, and the co-mapping request pins
+#: two splits
+SERVICE = {"threads": 8, "submissions": 3,
+           "late": ("streaming", "latency"), "late_after_rounds": 3,
+           "http_shape": {"name": "train_4k", "seq_len": 4096,
+                          "global_batch": 256, "mode": "train"},
+           "http_splits": [[12, 4], [8, 8]]}
+
+
+def _comap_kwargs():
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.core.platform import V5E_POD
+    return dict(archs=list(COMAP["archs"]),
+                shape=SHAPES_BY_NAME[COMAP["shape"]], platform=V5E_POD,
+                backend=COMAP["backend"], exec_model=COMAP["exec_model"],
+                optimiser=COMAP["optimiser"], objective=COMAP["objective"])
+
+
+def _comap_fields(plan):
+    """What [comap] compares: split, per-net designs and objectives,
+    composite, points and history."""
+    r = plan.result
+    return {"split_index": plan.split_index, "split": tuple(plan.split),
+            "feasible": plan.feasible, "objective": plan.objective_value,
+            "points": r.points, "history": _history(r.history),
+            "designs": [_design(x.variables) for x in r.per_net],
+            "net_objectives": [p.objective_value for p in plan.plans]}
+
+
+def _comap_reference():
+    """The numpy engine's joint search of [comap] (run in a worker)."""
+    if str(SRC) not in sys.path:
+        sys.path.insert(0, str(SRC))
+    from repro_torch.core import pipeline
+    return _comap_fields(pipeline.optimise_comapping(**_comap_kwargs(),
+                                                     engine="numpy"))
+
+
+class _CountSteps:
+    """``with _CountSteps() as steps:`` counts the rule-based descent's
+    device steps (``search_loops._rb_step`` calls) in ``steps.n``."""
+
+    def __enter__(self):
+        from repro_torch.core.accel import search_loops
+        self.n, self.body = 0, search_loops._rb_step
+
+        def counted(*a, **k):
+            self.n += 1
+            return self.body(*a, **k)
+
+        search_loops._rb_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.accel import search_loops
+        search_loops._rb_step = self.body
+
+
+def phase_comap(smi_line, references):
+    """``optimise_comapping(engine="torch")`` on the card: every lane of
+    the joint search in one rule-based fleet call; the numpy engine's
+    reference is added to ``references``."""
+    from repro_torch.core import pipeline
+    with _CountSteps() as steps:
+        plan, wall, launches, shapes = _timed_on_card(
+            lambda: pipeline.optimise_comapping(**_comap_kwargs(),
+                                                engine="torch"))
+    got = _comap_fields(plan)
+    r = plan.result
+    tag = (f"{' + '.join(COMAP['archs'])} at {COMAP['shape']} on V5E_POD, "
+           f"{COMAP['exec_model']}/{COMAP['objective']}")
+    if not plan.feasible or len(plan.plans) != len(COMAP["archs"]):
+        fail(f"[comap] {tag}: infeasible or {len(plan.plans)} plans")
+    for p, x in zip(plan.plans, r.per_net):
+        if p.objective_value != x.evaluation.objective:
+            fail(f"[comap] {p.arch_name}: the plan's objective "
+                 f"{p.objective_value!r} is not its lane's "
+                 f"{x.evaluation.objective!r}")
+    if (got["split"], got["points"], len(got["history"])) != \
+            (COMAP["split"], COMAP["points"], COMAP["history"]):
+        fail(f"[comap] {tag}: split {got['split']}, {got['points']} points, "
+             f"history {len(got['history'])}, not the numpy engine's "
+             f"{COMAP['split']}, {COMAP['points']}, {COMAP['history']}")
+    # two launches a lockstep step: [lanes, n] at the incumbents and
+    # [lanes x probes, n]
+    n_pad = max(len(g.nodes) for g in r.problem.graphs)
+    if not 0 < launches == 2 * steps.n or \
+            shapes.get((COMAP["lanes"], n_pad)) != steps.n or len(shapes) != 2:
+        fail(f"[comap] {launches} segred launches "
+             f"({_segred_routes(shapes)}) in {steps.n} lockstep steps: not "
+             f"one [{COMAP['lanes']}, {n_pad}] and one [lanes x probes, "
+             f"{n_pad}] a step")
+    row = dict(got, request=tag, lanes=COMAP["lanes"], wall_s=wall,
+               points_per_s=r.points / wall, steps=steps.n,
+               segred_launches=launches,
+               segred_shapes={f"{N}x{n}": c for (N, n), c in shapes.items()},
+               device=smi_line)
+    say("comap", f"{tag}: {COMAP['lanes']} lanes in one rule-based fleet "
+                 f"call; split {got['split']}, {got['points']} points, "
+                 f"composite {got['objective']!r}, history "
+                 f"{len(got['history'])}; each plan's objective its lane's; "
+                 f"{steps.n} lockstep steps, two launches each: "
+                 f"{_segred_routes(shapes)}; wall {wall:.3f} s, "
+                 f"{row['points_per_s']:.0f} points/s; {smi_line}")
+
+    def check(refs, seconds):
+        (want,) = refs
+        for key in ("split_index", "split", "feasible", "objective",
+                    "points", "history", "designs", "net_objectives"):
+            if got[key] != want[key]:
+                fail(f"[comap] {key} {got[key]!r} differs from the numpy "
+                     f"engine's {want[key]!r}")
+        row["numpy_wall_s"] = seconds
+        say("comap", f"equal to the numpy engine: split, both nets' designs "
+                     f"and objectives, composite, points and history (the "
+                     f"reference ran in a worker process beside [lm] and "
+                     f"[lm-dense], {seconds:.1f} s)")
+
+    references.add(_comap_reference, [()], check)
+    return row, launches
+
+
+def _same_served(resp, want):
+    r = resp.result
+    return (_design(r.variables), r.evaluation.objective, r.points,
+            list(r.history)) == (_design(want.variables),
+                                 want.evaluation.objective, want.points,
+                                 list(want.history)) and \
+        resp.plan.objective_value == want.evaluation.objective
+
+
+def _service_threads(arch, shape, direct):
+    """8 threads x 3 seeded submissions of phase 4's two requests to one
+    server: each response bitwise phase 4's direct run."""
+    import random
+    import threading
+    from repro_torch.core.platform import V5E_POD
+    from repro_torch.obs import metrics
+    from repro_torch.service import MappingServer
+    results, errors = [], []
+    lock = threading.Lock()
+    with MappingServer() as srv:
+        def worker(tid):
+            try:
+                rng = random.Random(tid)
+                for _ in range(SERVICE["submissions"]):
+                    req = rng.choice(REQUESTS)
+                    tag = f"{req['exec_model']}/{req['objective']}"
+                    resp = srv.submit(
+                        arch, shape, V5E_POD, backend="spmd",
+                        optimiser="rule_based", objective=req["objective"],
+                        exec_model=req["exec_model"],
+                        engine="torch").result(timeout=900)
+                    with lock:
+                        results.append((tag, resp))
+            except BaseException as e:      # reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(SERVICE["threads"])]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+    if errors:
+        fail(f"[service] a submission failed: {errors[0]!r}")
+    n = SERVICE["threads"] * SERVICE["submissions"]
+    c = metrics.snapshot()["counters"]
+    for tag, resp in results:
+        if resp.engine != "torch" or not _same_served(resp, direct[tag]):
+            fail(f"[service] a {tag} response differs from phase 4's "
+                 f"direct run")
+    tags = sorted({tag for tag, _ in results})
+    # an engine run's leader is neither cached nor coalesced
+    coalesced = sum(r.coalesced for _, r in results)
+    cached = sum(r.cached and not r.coalesced for _, r in results)
+    if len(results) != n or len(tags) != len(REQUESTS) or \
+            c.get("service.engine_runs") != len(REQUESTS) or \
+            c.get("service.requests.completed") != n or \
+            coalesced + cached != n - len(REQUESTS):
+        fail(f"[service] {len(results)} responses over {tags}, "
+             f"{coalesced} coalesced and {cached} from the cache; counters "
+             f"{c}: not {len(REQUESTS)} engine runs and the rest "
+             f"coalesced or cached")
+    if c.get("accel.dispatches.fleet_rb_descend") != c["service.rounds"]:
+        fail(f"[service] {c.get('accel.dispatches.fleet_rb_descend')} "
+             f"descent calls in {c['service.rounds']} lockstep rounds, not "
+             f"one a round")
+    return {"responses": n, "engine_runs": c["service.engine_runs"],
+            "coalesced": coalesced, "cached": cached,
+            "rounds": c["service.rounds"]}, None
+
+
+def _service_late_joiner(arch, shape, direct):
+    """Streaming/throughput in lockstep rounds, joined after a few rounds
+    by streaming/latency: both bitwise their direct runs."""
+    from repro_torch.core import pipeline
+    from repro_torch.core.optimizers import OPTIMIZERS
+    from repro_torch.core.platform import V5E_POD
+    from repro_torch.obs import metrics
+    from repro_torch.service import MappingServer
+    em, obj = SERVICE["late"]
+    first_tag = next(f"{r['exec_model']}/{r['objective']}" for r in REQUESTS
+                     if r["exec_model"] == em)
+    rounds = metrics.counter("service.rounds")
+    with MappingServer() as srv:
+        first = srv.submit(arch, shape, V5E_POD, backend="spmd",
+                           optimiser="rule_based",
+                           objective=first_tag.split("/")[1],
+                           exec_model=em, engine="torch")
+        while rounds.value < SERVICE["late_after_rounds"] and \
+                not first.done():
+            time.sleep(0.001)
+        late = srv.submit(arch, shape, V5E_POD, backend="spmd",
+                          optimiser="rule_based", objective=obj,
+                          exec_model=em, engine="torch")
+        r_first, r_late = first.result(900), late.result(900)
+    c = metrics.snapshot()["counters"]
+    if c.get("service.requests.late_joined") != 1 or \
+            c.get("service.admissions") != 2 or \
+            c.get("service.engine_runs") != 2:
+        fail(f"[service] the {em}/{obj} request did not join the running "
+             f"round: counters {c}")
+
+    def verify():
+        want = OPTIMIZERS["rule_based"](
+            pipeline.make_problem(arch, shape, V5E_POD, "spmd", obj, em),
+            engine="torch")
+        if not _same_served(r_first, direct[first_tag]) or \
+                not _same_served(r_late, want):
+            fail(f"[service] with a late joiner, a response differs from "
+                 f"its direct run")
+
+    return {"late_joined": f"{em}/{obj}", "joined_after_rounds":
+            SERVICE["late_after_rounds"], "rounds": c["service.rounds"],
+            "restacks": c.get("service.rounds.restacks", 0),
+            "late_points": r_late.result.points}, verify
+
+
+def _post(base, route, body):
+    import urllib.request
+    req = urllib.request.Request(f"{base}{route}",
+                                 data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=900) as r:
+        return json.load(r)
+
+
+def _service_http():
+    """One POST /v1/mapping and one POST /v1/comap on 127.0.0.1 through
+    ``serve_http``, reduced nets, each equal to the direct call."""
+    import threading
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.service import MappingServer, serve_http
+    sh = SERVICE["http_shape"]
+    shape = ShapeSpec(sh["name"], sh["seq_len"], sh["global_batch"],
+                      sh["mode"])
+    names = COMAP["archs"]
+    with MappingServer() as srv:
+        httpd = serve_http(srv, host="127.0.0.1", port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            mapping = _post(base, "/v1/mapping", {
+                "arch": names[0], "reduced": True, "shape": sh,
+                "backend": "spmd", "optimiser": "rule_based",
+                "objective": "throughput", "exec_model": "streaming",
+                "engine": "torch"})
+            comap = _post(base, "/v1/comap", {
+                "archs": list(names), "reduced": True, "shape": sh,
+                "backend": "spmd", "optimiser": "rule_based",
+                "objective": COMAP["objective"],
+                "exec_model": "streaming", "engine": "torch",
+                "splits": SERVICE["http_splits"]})
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join()
+    return {"mapping": {k: mapping[k] for k in ("objective_value", "points",
+                                                 "partitions")},
+            "comap": {k: comap[k] for k in ("split", "objective_value",
+                                             "points")}}, \
+        lambda: _service_http_verify(mapping, comap, shape)
+
+
+def _service_http_verify(mapping, comap, shape):
+    """The HTTP responses against the direct calls on the card."""
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.core import pipeline
+    from repro_torch.core.optimizers import OPTIMIZERS
+    from repro_torch.core.platform import V5E_POD
+    names = COMAP["archs"]
+    want = OPTIMIZERS["rule_based"](pipeline.make_problem(
+        reduced(get_arch(names[0])), shape, V5E_POD, "spmd", "throughput",
+        "streaming"), engine="torch")
+    if (mapping["engine"], mapping["objective_value"], mapping["points"]) != \
+            ("torch", want.evaluation.objective, want.points):
+        fail(f"[service] POST /v1/mapping gave {mapping}, not the direct "
+             f"run's objective {want.evaluation.objective!r} and "
+             f"{want.points} points")
+    plan = pipeline.optimise_comapping(
+        [reduced(get_arch(n)) for n in names], shape, V5E_POD,
+        backend="spmd", optimiser="rule_based", objective=COMAP["objective"],
+        exec_model="streaming", engine="torch",
+        splits=SERVICE["http_splits"])
+    if (comap["split_index"], comap["split"], comap["objective_value"],
+            comap["points"], [n["objective_value"] for n in comap["nets"]]) \
+            != (plan.split_index, list(plan.split), plan.objective_value,
+                plan.result.points, [p.objective_value for p in plan.plans]):
+        fail(f"[service] POST /v1/comap gave {comap}, not the direct "
+             f"optimise_comapping's split {plan.split} and objective "
+             f"{plan.objective_value!r}")
+
+
+def phase_service(smi_line, direct):
+    """``repro_torch.service.MappingServer`` on the card, its responses
+    held to phase 4's direct runs (``direct``, by request)."""
+    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.obs import metrics
+    arch, shape = get_arch("tinyllama-1.1b"), SHAPES_BY_NAME["train_4k"]
+    row = {"device": smi_line}
+    for part, run in (("threads", lambda: _service_threads(arch, shape,
+                                                           direct)),
+                      ("late joiner", lambda: _service_late_joiner(
+                          arch, shape, direct)),
+                      ("http", _service_http)):
+        metrics.reset()
+        with _CountSteps() as steps:
+            (out, verify), wall, launches, shapes = _timed_on_card(run)
+        if verify is not None:
+            verify()
+        if not 0 < launches == 2 * steps.n:
+            fail(f"[service] {part}: {launches} segred launches in "
+                 f"{steps.n} descent steps, not two a step")
+        out.update(wall_s=wall, steps=steps.n, segred_launches=launches,
+                   segred_shapes={f"{N}x{n}": c
+                                  for (N, n), c in shapes.items()})
+        row[part] = out
+        say("service", f"{part}: {json.dumps(out)}")
+    launches = sum(row[p]["segred_launches"]
+                   for p in ("threads", "late joiner", "http"))
+    say("service", f"every response bitwise its direct run; "
+                   f"{row['threads']['responses']} threaded responses from "
+                   f"{row['threads']['engine_runs']} engine runs "
+                   f"({row['threads']['coalesced']} coalesced, "
+                   f"{row['threads']['cached']} from the cache), "
+                   f"{row['threads']['rounds']} lockstep rounds, one "
+                   f"descent call each; segred launches {launches}, two a "
+                   f"step; {smi_line}")
+    return row, launches
 
 
 def _lm_batch(vocab, batch, seq, seed):
@@ -1998,23 +2464,41 @@ def main() -> None:
         fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
              f"repository")
     sys.path.insert(0, str(SRC))
+    t_run = time.perf_counter()
     kind, smi_line = phase_device()
     import torch
-    build, yardsticks = phase_build()
-    rows = phase_kernels(yardsticks)
-    wkv_rows = phase_wkv6(yardsticks)
-    flash_rows = phase_flash()
-    runs, launches = phase_main()
-    search, search_launches = phase_search(smi_line)
-    fleet, fleet_launches, references = phase_fleet(smi_line)
+    with phase_wall("build"):
+        build, yardsticks = phase_build()
+    with phase_wall("kernels segred"):
+        rows = phase_kernels(yardsticks)
+    with phase_wall("kernels wkv6"):
+        wkv_rows = phase_wkv6(yardsticks)
+    with phase_wall("kernels flash_attn"):
+        flash_rows = phase_flash()
+    with phase_wall("main"):
+        runs, launches, direct = phase_main()
+    with phase_wall("search"):
+        search, search_launches = phase_search(smi_line)
+    references = References()
+    fleet, fleet_launches = phase_fleet(smi_line, references)
+    with phase_wall("comap"):
+        comap, comap_launches = phase_comap(smi_line, references)
+    with phase_wall("service"):
+        service, service_launches = phase_service(smi_line, direct)
+    references.start()
     try:
-        model, batch, lm = phase_lm()
-        dense_model, dense_batch, dense = phase_lm_dense()
-        references.check()
+        with phase_wall("lm"):
+            model, batch, lm = phase_lm()
+        with phase_wall("lm-dense"):
+            dense_model, dense_batch, dense = phase_lm_dense()
+        with phase_wall("numpy references (wait after lm-dense)"):
+            references.check()
     finally:
         references.stop()
     for row in fleet:
         row.pop("results")
+    WALLS["run before --profile"] = time.perf_counter() - t_run
+    say("wall", ", ".join(f"{k} {v:.1f} s" for k, v in WALLS.items()))
     profiled = None
     if "--profile" in sys.argv[1:]:
         profiled = {"mapping": phase_profile(runs),
@@ -2038,7 +2522,8 @@ def main() -> None:
         "name": "segred", "route": "cuda",
         "source": "src/repro_torch/csrc/segred.cu",
         "replaces": "src/repro/core/accel/pallas_segred.py:31",
-        "launches": launches + search_launches + fleet_launches,
+        "launches": launches + search_launches + fleet_launches
+        + comap_launches + service_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2069,7 +2554,9 @@ def main() -> None:
         "build": {name: {k: info[k] for k in ("seconds", "cached", "ptxas")}
                   for name, info in build.items()},
         "segred": rows, "wkv6": wkv_rows, "flash_attn": flash_rows,
-        "main": runs, "search": search, "fleet": fleet, "lm": lm,
+        "main": runs, "search": search, "fleet": fleet, "comap": comap,
+        "service": service, "lm": lm,
+        "walls_s": WALLS,
         "lm_dense": dense,
         "profile": profiled, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)

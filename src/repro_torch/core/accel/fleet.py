@@ -22,8 +22,8 @@ time; this module runs a whole portfolio as a few device programs:
   3. **Lanes** — the *same* bodies the per-problem engine runs
      (``_bf_chunk_core``, ``_sa_sweeps``, ``_rb_descend_core``) take the
      lane axis as their leading axis: one step, sweep or chunk of the
-     whole bucket is one pass of eager device work and ONE segred launch,
-     whatever the number of lanes (K1 reduces each row on its own, so the
+     whole bucket is one pass of eager device work and ONE segred launch
+     (two for a rule-based step), whatever the number of lanes (K1 reduces each row on its own, so the
      lanes fold into its rows). The bodies' float sums are order-fixed
      (``eval_torch.py``), each lane draws its own random stream, and
      padding is bitwise neutral, so the fleet returns per-problem optima,
@@ -459,6 +459,62 @@ def _stack_lanes(tensors) -> torch.Tensor:
     return torch.stack(list(tensors))
 
 
+def _rb_stack(rbs) -> tuple:
+    """The lane-stacked device tables of rule-based lanes built at shared
+    pads: ``(A, menus, menu_sizes, clamp, amort)``, each with a leading
+    lane axis."""
+    return (stack_tensors([r.A for r in rbs]),
+            _stack_lanes(r.menus for r in rbs),
+            _stack_lanes(r.menu_sizes for r in rbs),
+            _stack_lanes(r.clamp for r in rbs),
+            _stack_lanes(r.amort for r in rbs))
+
+
+def _rb_round(rbs, pending, stacked, *, bucket, rnd: int,
+              d2h_span: str) -> list:
+    """One lockstep round of rule-based lanes, shared by
+    ``fleet_rule_based`` and the service's ``run_rule_based_lockstep``.
+
+    ``pending[i]`` is lane i's descent request ``(v, part)``, or None for
+    an inert lane (no request this round, or a generator that has
+    returned), which rides as ``cap == 0``. Packs every request, makes ONE
+    lane-stacked ``_rb_descend_core`` call over ``stacked`` (``_rb_stack``
+    of ``rbs``: one read of the loop condition and two segred launches a
+    step, whatever the lane count), reads the lanes back under
+    ``d2h_span`` and unpacks them. Returns the responses, None where
+    nothing was pending."""
+    static, gran = rbs[0].static, rbs[0].gran
+    t = _to(rbs[0].device)
+    P, n_pad = len(rbs), static.n_nodes
+    E = max(n_pad - 1, 0)
+    si = np.ones((P, n_pad), np.int64)
+    so = np.ones((P, n_pad), np.int64)
+    kk = np.ones((P, n_pad), np.int64)
+    cb = np.zeros((P, E), bool)
+    pm = np.zeros((P, n_pad), bool)
+    pidx = np.zeros(P, np.int64)
+    cap = np.zeros(P, np.int64)              # 0 => masked no-op lane
+    for li, req in enumerate(pending):
+        if req is None:
+            continue
+        v, part = req
+        (si[li], so[li], kk[li], cb[li], pm[li], pidx[li],
+         cap[li]) = rbs[li].pack_request(v, part)
+    max_parts = 1 + max(len(req[0].cuts) for req in pending
+                        if req is not None)
+    A_st, menus_st, sizes_st, clamp_st, amort = stacked
+    with _metrics.device_dispatch("fleet_rb_descend", bucket=bucket,
+                                  round=rnd):
+        out = _rb_descend_core(
+            static, gran, A_st, menus_st, sizes_st, clamp_st, t(si), t(so),
+            t(kk), t(cb), t(pm), t(pidx), amort, t(cap), max_parts)
+    with _trace.span(d2h_span):
+        o_si, o_so, o_kk, pts = (x.cpu().numpy() for x in out)
+    return [None if req is None else
+            rbs[li].unpack(req[0], o_si[li], o_so[li], o_kk[li], pts[li])
+            for li, req in enumerate(pending)]
+
+
 @torch.no_grad()
 def fleet_annealing(problems: Sequence, seed: int = 0,
                     k_start: float = 1000.0, k_min: float = 1.0,
@@ -595,7 +651,7 @@ def fleet_rule_based(problems: Sequence,
     answered in lockstep: one lane-stacked ``_rb_descend_core`` call per
     round advances every pending problem's descent to convergence, one
     step of the whole bucket at a time (one read of the loop condition
-    and one segred launch a step, whatever the number of lanes). Problems
+    and two segred launches a step, whatever the number of lanes). Problems
     with no pending request ride along as ``cap == 0`` lanes and lanes
     that converge early as explicit no-ops; the round loop continues until
     every generator has returned. Per-problem merge sequences, final
@@ -627,19 +683,13 @@ def fleet_rule_based(problems: Sequence,
                                 members=len(idxs))
         bucket_sp.__enter__()
         members = [problems[i] for i in idxs]
-        P = len(members)
         n_pad, pairs_pad, vals_pad, lut_pad, tabs = _bucket_tables(members)
         rbs = [DeviceRuleBased(p, device=device, pad_nodes=n_pad,
                                pad_pairs=pairs_pad, pad_vals=vals_pad,
                                pad_lut=lut_pad, tables=tb)
                for p, tb in zip(members, tabs)]
         _same_program(rbs, "fleet_rule_based")
-        t = _to(rbs[0].device)
-        A_st = stack_tensors([r.A for r in rbs])
-        menus_st = _stack_lanes(r.menus for r in rbs)
-        sizes_st = _stack_lanes(r.menu_sizes for r in rbs)
-        clamp_st = _stack_lanes(r.clamp for r in rbs)
-        amort = _stack_lanes(r.amort for r in rbs)
+        stacked = _rb_stack(rbs)
 
         gens = [_algorithm2(p, time_budget_s, multi_start) for p in members]
         pending: List[Optional[tuple]] = []
@@ -650,39 +700,14 @@ def fleet_rule_based(problems: Sequence,
                 results[idxs[li]] = stop.value
                 pending.append(None)
 
-        E = max(n_pad - 1, 0)
         rnd = 0
         while any(req is not None for req in pending):
-            si = np.ones((P, n_pad), np.int64)
-            so = np.ones((P, n_pad), np.int64)
-            kk = np.ones((P, n_pad), np.int64)
-            cb = np.zeros((P, E), bool)
-            pm = np.zeros((P, n_pad), bool)
-            pidx = np.zeros(P, np.int64)
-            cap = np.zeros(P, np.int64)      # 0 => masked no-op lane
-            for li, req in enumerate(pending):
-                if req is None:
-                    continue
-                v, part = req
-                (si[li], so[li], kk[li], cb[li], pm[li], pidx[li],
-                 cap[li]) = rbs[li].pack_request(v, part)
-            max_parts = 1 + max(len(req[0].cuts) for req in pending
-                                if req is not None)
-            with _metrics.device_dispatch("fleet_rb_descend", bucket=bi,
-                                          round=rnd):
-                out = _rb_descend_core(
-                    rbs[0].static, rbs[0].gran, A_st, menus_st, sizes_st,
-                    clamp_st, t(si), t(so), t(kk), t(cb), t(pm), t(pidx),
-                    amort, t(cap), max_parts)
-            with _trace.span("fleet.d2h.rb_descend"):
-                o_si, o_so, o_kk, pts = (x.cpu().numpy() for x in out)
+            resps = _rb_round(rbs, pending, stacked, bucket=bi, rnd=rnd,
+                              d2h_span="fleet.d2h.rb_descend")
             rnd += 1
-            for li, req in enumerate(pending):
-                if req is None:
+            for li, resp in enumerate(resps):
+                if resp is None:
                     continue
-                v, part = req
-                resp = rbs[li].unpack(v, o_si[li], o_so[li], o_kk[li],
-                                      pts[li])
                 try:
                     pending[li] = gens[li].send(resp)
                 except StopIteration as stop:

@@ -8,6 +8,9 @@
                                [V5E_POD, V5E_2POD],         # per-model
                                optimiser="brute_force")     # platforms
 
+    comap = optimise_comapping(["tinyllama-1.1b", "llama3.2-1b"], shape,
+                               V5E_POD)    # two nets sharing one pod
+
 The same entry points as ``repro.core.pipeline``'s. Engines:
 
   engine   brute_force           annealing             rule_based
@@ -40,9 +43,14 @@ as fleets on the card (``core/accel/fleet.py``): each bucket of problems is
 one lane-stacked device program, with per-problem results bitwise those of
 a per-problem ``optimise_mapping`` loop.
 
-The ``devices=`` axis (ROADMAP Queue 1, item 9) and co-mapping (item 10)
-are still to port; ``devices=`` raises ``NotImplementedError`` naming item
-9.
+``optimise_comapping`` maps N networks onto one shared platform, the
+split of its leading mesh axis between them part of the search: every
+(split, net) sub-problem is a lane of one fleet call (``core/comap.py``,
+``core/accel/comap_fleet.py``), and the per-net optima are combined into
+the composite objective on the host in float64.
+
+The ``devices=`` axis (ROADMAP Queue 1, item 9) is still to port;
+``devices=`` raises ``NotImplementedError`` naming item 9.
 """
 from __future__ import annotations
 
@@ -267,5 +275,97 @@ def optimise_portfolio(archs: Sequence, shapes,
                 for p, r in zip(problems, all_results)]
 
 
+def make_comap_problem(archs: Sequence, shape: ShapeSpec,
+                       platform: Platform = V5E_POD,
+                       backend: str = "spmd",
+                       objective: str = "weighted_throughput",
+                       weights: Optional[Sequence[float]] = None,
+                       exec_model: str = "streaming",
+                       opts: Optional[ModelOptions] = None,
+                       splits: Optional[Sequence[Sequence[int]]] = None):
+    """Build a ``CoMapProblem``: N architectures sharing ONE platform,
+    the chip/HBM partition between them part of the decision space.
+    ``archs`` are ArchConfigs or registry names; ``objective`` is a
+    composite name from ``COMAP_OBJECTIVES``; ``splits`` optionally pins
+    an explicit resource-split menu instead of the full axis-0
+    composition enumeration."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.objectives import CoMapProblem
+
+    if isinstance(archs, str):
+        raise ValueError(
+            f"archs must be a sequence of ArchConfigs or registry names; "
+            f"got the single string {archs!r} — wrap it in a list")
+    archs = [get_arch(a) if isinstance(a, str) else a for a in archs]
+    graphs = tuple(build_hdgraph(a, shape) for a in archs)
+    return CoMapProblem(
+        graphs=graphs,
+        platform=platform,
+        backend=BACKENDS[backend],
+        objective=objective,
+        weights=None if weights is None else tuple(weights),
+        exec_model=exec_model,
+        opts=opts or ModelOptions(),
+        splits=None if splits is None
+        else tuple(tuple(int(p) for p in s) for s in splits),
+    )
+
+
+def optimise_comapping(archs: Sequence, shape: ShapeSpec,
+                       platform: Platform = V5E_POD,
+                       backend: str = "spmd",
+                       optimiser: str = "rule_based",
+                       objective: str = "weighted_throughput",
+                       weights: Optional[Sequence[float]] = None,
+                       exec_model: str = "streaming",
+                       opts: Optional[ModelOptions] = None,
+                       engine: str = "auto",
+                       splits: Optional[Sequence[Sequence[int]]] = None,
+                       **optimiser_kwargs):
+    """Jointly map N networks onto one shared platform — the f-CNN^x
+    multi-CNN scenario as a first-class problem type.
+
+    Enumerates the resource-partition menu (or the explicit ``splits``),
+    searches every per-(split, net) sub-problem with the requested
+    optimiser — with the torch engine (the ``auto`` default), ALL S x N
+    lanes in one fleet call (``core/accel/comap_fleet.py``) — and
+    combines per-net optima into the composite ``objective`` on the host
+    in float64 (exact: the composites are monotone per-net, see
+    ``core/comap.py``). Returns a ``CoMapPlan`` whose ``plans`` hold one
+    exported ``ShardingPlan`` per net against its disjoint sub-platform;
+    an infeasible co-mapping (e.g. fewer leading-axis slices than nets)
+    returns ``feasible=False`` with no plans rather than raising. The
+    torch engine runs on the card unless ``device="cpu"`` is passed;
+    ``devices=`` (ROADMAP Queue 1, item 9) raises
+    ``NotImplementedError``."""
+    from repro_torch.core.comap import CoMapPlan, joint_search
+
+    with _trace.span("pipeline.optimise_comapping", nets=len(archs),
+                     optimiser=optimiser, objective=objective,
+                     engine=engine):
+        cp = make_comap_problem(archs, shape, platform, backend,
+                                objective, weights, exec_model, opts,
+                                splits)
+        result = joint_search(cp, optimiser=optimiser, engine=engine,
+                              **optimiser_kwargs)
+        if result.split_index < 0:
+            return CoMapPlan(split_index=-1, split=(), plans=(),
+                             objective=objective,
+                             objective_value=result.evaluation.objective,
+                             feasible=False, result=result)
+        subplats = cp.split_platforms(result.split_index)
+        with _trace.span("pipeline.export_plans", count=cp.n_nets):
+            plans = tuple(
+                export_plan(cp.graphs[i], r.variables, subplats[i],
+                            exec_model, r.evaluation)
+                for i, r in enumerate(result.per_net))
+        return CoMapPlan(split_index=result.split_index,
+                         split=result.split, plans=plans,
+                         objective=objective,
+                         objective_value=result.evaluation.objective,
+                         feasible=result.evaluation.feasible,
+                         result=result)
+
+
 __all__ = ["make_problem", "optimise_mapping", "optimise_portfolio",
-           "FLEET_KWARGS"]
+           "make_comap_problem", "optimise_comapping", "FLEET_KWARGS"]

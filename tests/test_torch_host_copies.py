@@ -2,8 +2,9 @@
 originals: configs, graph builder, platform, backends, performance model,
 constraints, objectives, the numpy engine, the exporter, telemetry,
 Algorithm 2's merge loop, brute force's and annealing's host engines, the
-brute-force chunk helpers, the SA move tables, the fleet's host helpers and
-the problem fingerprint.
+brute-force chunk helpers, the SA move tables, the fleet's host helpers,
+the problem fingerprint, the co-mapping joint search, and the service's
+cache, queue and server.
 
 Two holds: the source text of every verbatim copy equals its original once
 the package name is mapped back (for the optimisers whose engine dispatch
@@ -85,26 +86,62 @@ PIECEWISE = {
     "core/optimizers/brute_force.py": {"optimise"},
     "core/optimizers/annealing.py": {"optimise", "_optimise_jax",
                                      "_optimise_torch"},
+    # the fleet branch takes the torch engine and ``device``
+    "core/comap.py": {"FLEET_KWARGS", "joint_search"},
+    # only the docstring differs
+    "service/cache.py": set(),
+    # the lockstep rounds run the port's lane-stacked descent on a device
+    "service/queue.py": {"run_rule_based_lockstep"},
+    # the lockstep route takes the torch engine, keyed by device too
+    "service/server.py": {"_LOCKSTEP_KW", "MappingServer._classify",
+                          "MappingServer._process"},
+}
+#: the entry point each piecewise copy must still define
+PIECEWISE_ENTRY = {
+    "core/optimizers/brute_force.py": "optimise",
+    "core/optimizers/annealing.py": "optimise",
+    "core/comap.py": "joint_search",
+    "service/cache.py": "SolvedCache",
+    "service/queue.py": "run_rule_based_lockstep",
+    "service/server.py": "MappingServer",
 }
 
 
 def _statements(text):
-    """(name, source) of each top-level statement after the docstring."""
+    """(name, source) of each top-level statement after the docstring; a
+    class is its header (up to its first member) and then each member,
+    named ``Class.member``."""
     import ast
     lines = text.splitlines()
     body = ast.parse(text).body
     if body and isinstance(body[0], ast.Expr) and \
             isinstance(body[0].value, ast.Constant):
         body = body[1:]
-    out = []
-    for node in body:
-        name = getattr(node, "name", None)
+
+    def name_of(node):
         if isinstance(node, (ast.Assign, ast.AnnAssign)):
             target = node.targets[0] if isinstance(node, ast.Assign) \
                 else node.target
-            name = getattr(target, "id", None)
-        start = min([node.lineno] + [d.lineno for d in getattr(
+            return getattr(target, "id", None)
+        return getattr(node, "name", None)
+
+    def start_of(node):
+        return min([node.lineno] + [d.lineno for d in getattr(
             node, "decorator_list", [])])
+
+    out = []
+    for node in body:
+        name, start = name_of(node), start_of(node)
+        if isinstance(node, ast.ClassDef):
+            members = [m for m in node.body
+                       if not (isinstance(m, ast.Expr)
+                               and isinstance(m.value, ast.Constant))]
+            first = start_of(members[0]) if members else node.end_lineno + 1
+            out.append((name, "\n".join(lines[start - 1:first - 1])))
+            for m in members:
+                out.append((f"{name}.{name_of(m)}", "\n".join(
+                    lines[start_of(m) - 1:m.end_lineno])))
+            continue
         out.append((name, "\n".join(lines[start - 1:node.end_lineno])))
     return out
 
@@ -116,7 +153,8 @@ def test_piecewise_copy_matches_original_outside_its_dispatch(rel):
                          if st[0] not in PIECEWISE[rel]]
     assert keep(port) == keep(orig)
     names = {name for name, _ in _statements(port)}
-    assert "optimise" in names and "_optimise_jax" not in names
+    assert PIECEWISE_ENTRY[rel] in names
+    assert not [n for n in names if n and "jax" in n]
 
 
 #: numpy helpers of JAX modules that the port copies into its own module of

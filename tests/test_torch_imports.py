@@ -41,6 +41,10 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "repro_torch.core.accel.eval_torch",
                 "repro_torch.core.accel.search_loops",
                 "repro_torch.core.accel.fleet",
+                "repro_torch.core.accel.comap_fleet",
+                "repro_torch.core.comap", "repro_torch.service",
+                "repro_torch.service.cache", "repro_torch.service.queue",
+                "repro_torch.service.server",
                 "repro_torch.core.accel.lowering",
                 "repro_torch.core.optimizers.rule_based",
                 "repro_torch.core.optimizers.brute_force",
