@@ -92,7 +92,7 @@ phase's failure is caught while the run goes on:
               134,803 points and a history of 5 as the numpy engine gives
               them, and split, designs, objectives, points and history
               equal to the numpy engine's run (in a worker process beside
-              phases 9 and 10); each plan's objective its lane's; segred
+              phases 10 and 11); each plan's objective its lane's; segred
               once at [30, n] and once at [30 x probes, n] a lockstep step
   8. service  ``repro_torch.service.MappingServer`` on the card: phase 4's
               two requests from 8 threads x 3 seeded submissions, each
@@ -103,7 +103,24 @@ phase's failure is caught while the run goes on:
               run; one POST /v1/mapping and one POST /v1/comap on
               127.0.0.1 (reduced nets), each equal to the direct call;
               segred twice a descent step in each part
-  9. lm       ``repro_torch.models.model.Model(rwkv6-1.6b, use_flash=True)``
+  9. devices  the device axis, ``devices=D``, on the card (D shards
+              share it and run one after another), each part bitwise its
+              ``devices=None`` run in this process: (a) [search] (a) at
+              D = 3 (B = 1026, ragged) and 8, segred once a shard a chunk
+              with a cut, at [B/D, 47] (points, design, history,
+              objective); (b) [fleet] (c)'s portfolio at D = 3 (ragged
+              buckets, ``take = 0`` padding lanes), every plan and result,
+              segred three times as often; (c) ``optimise_portfolio`` SA
+              on three of [fleet] (b)'s archs at full width cut to 4
+              layers, 16 chains x 50 sweeps, at None and D = 2 (3 lanes
+              pad to 4 with a copy of lane 0); (d) ``optimise_comapping``
+              of [comap]'s pair at full width cut to 4 layers on 2 pinned
+              splits (4 lanes) at None and D = 3 (``cap = 0`` padding);
+              (e) one POST /v1/mapping of brute force with
+              ``"devices": 2`` (reduced tinyllama-1.1b, megatron, one-cut
+              sets, 4,096 points), equal to the direct call; each part's
+              wall, segred launches and shard devices
+  10. lm      ``repro_torch.models.model.Model(rwkv6-1.6b, use_flash=True)``
               at full width: (a) the first 2 layers with float32 weights from
               the seeded numpy recipe, B=1, T=128, held to the JAX package's
               record (loss 1e-4 relative, sampled logits 1e-3 absolute);
@@ -120,7 +137,7 @@ phase's failure is caught while the run goes on:
               fixed 6e-2, see PERF.md); (c) the (b) weights in float32, all
               24 layers: the kernel forward held to the plain-WKV float32
               forward (logits 1e-3 abs and rel, loss 1e-5 relative)
-  10. lm-dense ``Model(tinyllama-1.1b, use_flash=True)`` at full width, the
+  11. lm-dense ``Model(tinyllama-1.1b, use_flash=True)`` at full width, the
               same two checks with flash attention in the kernel: (a) 2
               layers, float32 recipe weights, B=1, T=128, held to the JAX
               record ``DENSE_RECORD``; (b) all 22 layers in bfloat16 at B=2,
@@ -129,7 +146,7 @@ phase's failure is caught while the run goes on:
               (1e-3 relative) and the logits within 1.5 times that model's
               distance from the same model with attention in float64
 
-  11. profile (only with ``--profile``) the first mapping request, each
+  12. profile (only with ``--profile``) the first mapping request, each
               [search] request (SA: spmd/latency), [fleet] (b) and (c), and
               one forward of each LM
               once more under ``torch.profiler``: device busy time, the idle
@@ -216,10 +233,11 @@ F32_RTOL = 1e-5
 #: the main path's shape, a brute-force chunk's, one node a row, the
 #: shapes of [search]: a brute-force chunk of (a) and the SA chains of (c),
 #: of [fleet]: the probe rows of all ten lanes of (a) and the chains of all
-#: ten lanes of (b), and of [comap]: the incumbents and the probe rows of
-#: all 30 lanes
+#: ten lanes of (b), of [comap]: the incumbents and the probe rows of all
+#: 30 lanes, and of [devices] (a): a shard of (a)'s chunk at D = 3 and 8
 SEGRED_SHAPES = ((28, 47), (65536, 47), (64, 1), (1024, 47), (64, 47),
-                 (2170, 63), (640, 163), (30, 47), (1950, 47))
+                 (2170, 63), (640, 163), (30, 47), (1950, 47), (342, 47),
+                 (128, 47))
 
 #: wkv6 check shapes (B, T, H, hs) and decay ranges: tests/test_kernels.py's
 #: WKV shapes, a strong-decay case, decays with exact zeros and near 1e-30,
@@ -336,6 +354,10 @@ def say(phase: str, msg: str) -> None:
 
 #: each phase's wall seconds, in the order the phases ran
 WALLS = {}
+#: the ``devices=None`` runs that [devices] holds its sharded runs to, by
+#: the part that made them: "search a" (problem, kwargs, result, segred
+#: launches), "fleet c" (plans, results, segred launches)
+BASE = {}
 
 
 class phase_wall:
@@ -931,6 +953,7 @@ def _search_bf(req, arch, shape, smi_line):
     if not req["segred"] and n_launch:
         fail(f"[search] {tag}: the single-partition path launched segred "
              f"{n_launch} times")
+    BASE[f"search {req['name']}"] = (problem, req["kw"], got, n_launch)
     row = {"request": tag, "points": got.points,
            "objective": plan.objective_value,
            "history": _history(got.history), "wall_s": wall,
@@ -1292,8 +1315,6 @@ def _fleet_part(part, optimiser, smi_line, extra=()):
     """One [fleet] part: ``optimise_portfolio`` timed on the card, its plans
     checked against its results; returns the row with the unique problems,
     their specs and results."""
-    from repro_torch.configs import SHAPES_BY_NAME
-    from repro_torch.core import pipeline, platform
     from repro_torch.core.accel import fleet
     from repro_torch.core.accel.lowering import problem_fingerprint
     from repro_torch.core.exporter import export_plan
@@ -1304,14 +1325,8 @@ def _fleet_part(part, optimiser, smi_line, extra=()):
     metrics.reset()
     results = []
     plans, wall, launches, shapes = _timed_on_card(
-        lambda: pipeline.optimise_portfolio(
-            [_fleet_arch(cfg, n) for n, _, _ in specs],
-            SHAPES_BY_NAME[FLEET["shape"]],
-            [getattr(platform, pl) for _, pl, _ in specs],
-            backend=cfg["backend"], optimiser=optimiser,
-            objective=[o for _, _, o in specs],
-            exec_model=cfg["exec_model"], engine="torch", results=results,
-            **cfg["kw"]))
+        lambda: _portfolio(cfg, specs, optimiser, results))
+    BASE[f"fleet {part}"] = (plans, results, launches)
     coalesced = metrics.counter("pipeline.portfolio.coalesced").value
     first = {}
     for i, p in enumerate(problems):
@@ -1342,6 +1357,20 @@ def _fleet_part(part, optimiser, smi_line, extra=()):
             "coalesced": coalesced,
             "points": sum(results[i].points for i in unique),
             "device": smi_line}
+
+
+def _portfolio(cfg, specs, optimiser, results, **kw):
+    """``optimise_portfolio`` with the torch engine over the problems of
+    ``specs`` built as ``cfg`` says; ``results`` receives theirs."""
+    from repro_torch.configs import SHAPES_BY_NAME
+    from repro_torch.core import pipeline, platform
+    return pipeline.optimise_portfolio(
+        [_fleet_arch(cfg, n) for n, _, _ in specs],
+        SHAPES_BY_NAME[FLEET["shape"]],
+        [getattr(platform, pl) for _, pl, _ in specs],
+        backend=cfg["backend"], optimiser=optimiser,
+        objective=[o for _, _, o in specs], exec_model=cfg["exec_model"],
+        engine="torch", results=results, **cfg["kw"], **kw)
 
 
 def _fleet_loop(optimiser, problems, **kw):
@@ -1883,6 +1912,251 @@ def phase_service(smi_line, direct):
                    f"descent call each; segred launches {launches}, two a "
                    f"step; {smi_line}")
     return row, launches
+
+
+#: [devices]: the device axis on the card, each part held bitwise to its
+#: ``devices=None`` run in this process. (a) [search] (a) at each of
+#: ``bf``; (b) [fleet] (c)'s portfolio at ``fleet_bf``; (c) SA on the
+#: first three of [fleet] (b)'s archs, full width cut to ``layers``, its
+#: schedule cut to 50 sweeps by ``cooling``; (d) [comap]'s pair, full
+#: width cut to ``layers``, on two pinned splits; (e) a POST /v1/mapping
+#: of brute force on the reduced tinyllama-1.1b, with and without
+#: ``devices``
+DEVICES = {
+    "bf": (3, 8), "fleet_bf": 3,
+    "sa": {"devices": 2, "lanes": 3, "layers": 4, "sweeps": 50,
+           "kw": {"seed": 0, "chains": 16, "k_start": 1000.0, "k_min": 1.0,
+                  "cooling": 0.87}},
+    "comap": {"devices": 3, "layers": 4, "splits": [[12, 4], [8, 8]]},
+    "http": {"devices": 2, "arch": "tinyllama-1.1b", "backend": "megatron",
+             "exec_model": "spmd", "objective": "latency",
+             "kw": {"include_cuts": True, "max_cuts": 2,
+                    "max_points": 4096}},
+}
+
+
+def _mesh_line(D):
+    """Each shard's device, in shard order."""
+    from repro_torch.runtime import device_mesh
+    return ", ".join(f"shard {d}: {dev}"
+                     for d, dev in enumerate(device_mesh(D)))
+
+
+def _devices_report(part, what, wall, launches, shapes, D, smi_line,
+                    base_wall=None):
+    row = {"part": part, "devices": D, "wall_s": wall,
+           "segred_launches": launches,
+           "segred_shapes": {f"{N}x{n}": c for (N, n), c in shapes.items()},
+           "unsharded_wall_s": base_wall, "device": smi_line}
+    say("devices", f"({part}) D = {D}: {what}; wall {wall:.3f} s"
+                   + ("" if base_wall is None
+                      else f" (devices=None {base_wall:.3f} s)")
+                   + f"; segred launches {launches}: "
+                   f"{_segred_routes(shapes)}; {_mesh_line(D)}; {smi_line}")
+    return row
+
+
+def _devices_bf(smi_line):
+    """(a) [search] (a) at D shards: bitwise its own result; segred once a
+    shard a chunk with a cut, at [B/D, n]."""
+    import math
+    from repro_torch.core.accel.search_loops import _pow2ceil
+    from repro_torch.core.optimizers import OPTIMIZERS
+    problem, kw, want, base = BASE["search a"]
+    total = math.prod(len(m) for m in problem.backend.space(
+        problem.graph, problem.platform)[1])
+    rows = []
+    for D in DEVICES["bf"]:
+        got, wall, launches, shapes = _timed_on_card(
+            lambda: OPTIMIZERS["brute_force"](problem, engine="torch",
+                                              devices=D, **kw))
+        if not _same_result(got, want):
+            fail(f"[devices] (a) D = {D}: {got.points} points, history "
+                 f"{_history(got.history)} differ from [search] (a)'s "
+                 f"{want.points}, {_history(want.history)}")
+        B = -(-min(kw.get("batch_size", 4096), _pow2ceil(total)) // D) * D
+        n = len(problem.graph.nodes)
+        if shapes != {(B // D, n): base * D}:
+            fail(f"[devices] (a) D = {D}: segred launches "
+                 f"{_segred_routes(shapes)}, not {base * D} at "
+                 f"[{B // D}, {n}]")
+        rows.append(_devices_report(
+            "a", f"[search] (a), {got.points} points, B = {B}, bitwise "
+                 f"its devices=None result", wall, launches, shapes, D,
+            smi_line))
+    return rows
+
+
+def _devices_fleet_bf(smi_line):
+    """(b) [fleet] (c)'s portfolio at D shards: every plan and result
+    bitwise (c)'s; segred D times as often."""
+    D = DEVICES["fleet_bf"]
+    cfg = FLEET["bf"]
+    want_plans, want, base = BASE["fleet bf"]
+    got = []
+    plans, wall, launches, shapes = _timed_on_card(
+        lambda: _portfolio(cfg, _fleet_specs(cfg), "brute_force", got,
+                           devices=D))
+    if plans != want_plans or not all(
+            _same_result(a, b) for a, b in zip(got, want)):
+        fail(f"[devices] (b) D = {D}: a plan or result differs from "
+             f"[fleet] (c)'s")
+    if launches != D * base:
+        fail(f"[devices] (b) D = {D}: {launches} segred launches, not "
+             f"{D} x [fleet] (c)'s {base}")
+    return _devices_report("b", f"[fleet] (c)'s {len(plans)} problems, "
+                                f"every plan and result bitwise (c)'s",
+                           wall, launches, shapes, D, smi_line)
+
+
+def _devices_sa(smi_line):
+    """(c) SA on three of [fleet] (b)'s archs at full width cut to 4
+    layers, at None and D shards: bitwise; one launch a sweep a shard."""
+    cfg = dict(FLEET["sa"], layers=DEVICES["sa"]["layers"],
+               kw=DEVICES["sa"]["kw"])
+    D, sweeps = DEVICES["sa"]["devices"], DEVICES["sa"]["sweeps"]
+    specs = _fleet_specs(cfg)[:DEVICES["sa"]["lanes"]]
+    runs = {}
+    for devices in (None, D):
+        results = []
+        plans, wall, launches, shapes = _timed_on_card(
+            lambda: _portfolio(cfg, specs, "annealing", results,
+                               devices=devices))
+        runs[devices] = (plans, results, wall, launches, shapes)
+    (want_plans, want, base_wall, base, _), \
+        (plans, got, wall, launches, shapes) = runs[None], runs[D]
+    if plans != want_plans or not all(
+            _same_result(a, b) for a, b in zip(got, want)):
+        fail(f"[devices] (c) D = {D}: a plan or result differs from the "
+             f"devices=None run")
+    if any(r.points != sweeps * cfg["kw"]["chains"] for r in got) or \
+            (base, launches) != (sweeps, D * sweeps):
+        fail(f"[devices] (c): {[r.points for r in got]} points, segred "
+             f"launches {base} / {launches}, not {sweeps} / {D * sweeps}")
+    return _devices_report(
+        "c", f"SA on {', '.join(n for n, _, _ in specs)} (full width, "
+             f"{cfg['layers']} layers), {cfg['kw']['chains']} chains x "
+             f"{sweeps} sweeps, bitwise the devices=None run", wall,
+        launches, shapes, D, smi_line, base_wall)
+
+
+def _devices_comap(smi_line):
+    """(d) [comap]'s pair at full width cut to 4 layers on 2 pinned
+    splits (4 lanes), at None and D shards: bitwise."""
+    from repro_torch.core import pipeline
+    D = DEVICES["comap"]["devices"]
+    kw = dict(_comap_kwargs(), engine="torch",
+              splits=DEVICES["comap"]["splits"])
+    kw["archs"] = [_fleet_arch(DEVICES["comap"], n) for n in kw["archs"]]
+    runs = {}
+    for devices in (None, D):
+        with _CountSteps() as steps:
+            plan, wall, launches, shapes = _timed_on_card(
+                lambda: pipeline.optimise_comapping(**kw, devices=devices))
+        runs[devices] = (plan, wall, launches, shapes, steps.n)
+    (want, base_wall, _, _, base_steps), \
+        (plan, wall, launches, shapes, steps) = runs[None], runs[D]
+    if _comap_fields(plan) != _comap_fields(want) or \
+            plan.plans != want.plans:
+        fail(f"[devices] (d) D = {D}: split {plan.split}, composite "
+             f"{plan.objective_value!r} differ from the devices=None run's "
+             f"{want.split}, {want.objective_value!r}")
+    if not 0 < launches == 2 * steps:
+        fail(f"[devices] (d): {launches} segred launches in {steps} shard "
+             f"steps, not two a step")
+    return _devices_report(
+        "d", f"{' + '.join(COMAP['archs'])} (full width, "
+             f"{DEVICES['comap']['layers']} layers), splits "
+             f"{DEVICES['comap']['splits']}, {plan.result.points} points, "
+             f"split {plan.split}; {steps} shard steps against "
+             f"{base_steps} unsharded; bitwise the devices=None run", wall,
+        launches, shapes, D, smi_line, base_wall)
+
+
+def _devices_http(smi_line):
+    """(e) one POST /v1/mapping of brute force with ``devices`` in its
+    kwargs: every JSON field but the wall equal to the same POST without
+    ``devices``, the served result and plan (read back from the cache)
+    bitwise the direct call's, segred D times the direct call's launches."""
+    import threading
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core import pipeline
+    from repro_torch.core.exporter import export_plan
+    from repro_torch.core.optimizers import OPTIMIZERS
+    from repro_torch.core.platform import V5E_POD
+    from repro_torch.service import MappingServer, serve_http
+    cfg, sh = DEVICES["http"], SERVICE["http_shape"]
+    D = cfg["devices"]
+    shape = ShapeSpec(sh["name"], sh["seq_len"], sh["global_batch"],
+                      sh["mode"])
+    problem = pipeline.make_problem(
+        reduced(get_arch(cfg["arch"])), shape, V5E_POD, cfg["backend"],
+        cfg["objective"], cfg["exec_model"])
+    want, _, base, _ = _timed_on_card(
+        lambda: OPTIMIZERS["brute_force"](problem, engine="torch",
+                                          **cfg["kw"]))
+    plan = export_plan(problem.graph, want.variables, V5E_POD,
+                       cfg["exec_model"], want.evaluation)
+    body = {"arch": cfg["arch"], "reduced": True, "shape": sh,
+            "backend": cfg["backend"], "optimiser": "brute_force",
+            "objective": cfg["objective"], "exec_model": cfg["exec_model"],
+            "engine": "torch"}
+    with MappingServer() as srv:
+        httpd = serve_http(srv, host="127.0.0.1", port=0)
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            base_url = f"http://127.0.0.1:{httpd.server_address[1]}"
+            plain, base_wall, plain_launches, _ = _timed_on_card(
+                lambda: _post(base_url, "/v1/mapping",
+                              dict(body, optimiser_kwargs=cfg["kw"])))
+            out, wall, launches, shapes = _timed_on_card(
+                lambda: _post(base_url, "/v1/mapping", dict(
+                    body, optimiser_kwargs=dict(cfg["kw"], devices=D))))
+            served = srv.submit(
+                reduced(get_arch(cfg["arch"])), shape, V5E_POD,
+                backend=cfg["backend"], optimiser="brute_force",
+                objective=cfg["objective"], exec_model=cfg["exec_model"],
+                engine="torch", devices=D, **cfg["kw"]).result(900)
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            thread.join()
+    drop = lambda r: {k: v for k, v in r.items() if k != "total_s"}
+    if drop(out) != drop(plain):
+        fail(f"[devices] (e): POST /v1/mapping with devices={D} gave "
+             f"{drop(out)}, not the devices=None POST's {drop(plain)}")
+    if (out["engine"], out["objective_value"], out["points"],
+            out["partitions"]) != ("torch", plan.objective_value,
+                                   want.points, len(plan.partitions)):
+        fail(f"[devices] (e): POST /v1/mapping gave {out}, not the direct "
+             f"call's objective {plan.objective_value!r}, {want.points} "
+             f"points")
+    if not served.cached or not _same_result(served.result, want) or \
+            served.plan != plan:
+        fail(f"[devices] (e): the served result (cached {served.cached}) "
+             f"or plan differs from the direct call's: {served.result.points}"
+             f" points, history {_history(served.result.history)} against "
+             f"{want.points}, {_history(want.history)}")
+    if not 0 < base == plain_launches or launches != D * base:
+        fail(f"[devices] (e): segred launches {launches} with devices={D}, "
+             f"{plain_launches} without, {base} in the direct call; not "
+             f"{D} x {base}")
+    return _devices_report(
+        "e", f"POST /v1/mapping, brute force {cfg['backend']}, "
+             f"{out['points']} points, every field but the wall equal to "
+             f"the devices=None POST, result and plan bitwise the direct "
+             f"call's", wall, launches, shapes, D, smi_line, base_wall)
+
+
+def phase_devices(smi_line):
+    """The device axis on the card: (rows, segred launches)."""
+    rows = _devices_bf(smi_line)
+    for run in (_devices_fleet_bf, _devices_sa, _devices_comap,
+                _devices_http):
+        rows.append(run(smi_line))
+    return rows, sum(r["segred_launches"] for r in rows)
 
 
 def _lm_batch(vocab, batch, seq, seed):
@@ -2485,6 +2759,8 @@ def main() -> None:
         comap, comap_launches = phase_comap(smi_line, references)
     with phase_wall("service"):
         service, service_launches = phase_service(smi_line, direct)
+    with phase_wall("devices"):
+        devices, devices_launches = phase_devices(smi_line)
     references.start()
     try:
         with phase_wall("lm"):
@@ -2523,7 +2799,7 @@ def main() -> None:
         "source": "src/repro_torch/csrc/segred.cu",
         "replaces": "src/repro/core/accel/pallas_segred.py:31",
         "launches": launches + search_launches + fleet_launches
-        + comap_launches + service_launches,
+        + comap_launches + service_launches + devices_launches,
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2555,7 +2831,7 @@ def main() -> None:
                   for name, info in build.items()},
         "segred": rows, "wkv6": wkv_rows, "flash_attn": flash_rows,
         "main": runs, "search": search, "fleet": fleet, "comap": comap,
-        "service": service, "lm": lm,
+        "service": service, "devices": devices, "lm": lm,
         "walls_s": WALLS,
         "lm_dense": dense,
         "profile": profiled, "kernels": kernels}, indent=1))

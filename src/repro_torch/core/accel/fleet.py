@@ -40,11 +40,17 @@ Entry points mirror the single-problem optimisers and return one
     fleet_rule_based(problems, multi_start=...)
 
 Each runs on ``device`` (default: the card; ``device="cpu"`` runs the
-kernel's plain version). ``devices=`` (sharding a bucket's lanes over
-several cards) is ROADMAP Queue 1, item 9, and raises.
+kernel's plain version). ``devices=D`` splits each bucket's lanes, padded
+up to a multiple of D (``_pad_lanes``), into D contiguous slices, one a
+shard of ``runtime.device_mesh(D, device)``; each slice runs the unchanged
+bucket program on its shard's device, every shard launched before the
+step's readback, and the padding lanes are dropped on the host. Lanes
+never interact and a lane's bits do not depend on how many lanes share a
+call, so the results are bitwise those of ``devices=None`` for any D. On
+one card the shards run one after another; on several, on separate cards.
 ``core.pipeline.optimise_portfolio`` wraps these behind the engine
-registry. The host helpers (bucketing, padding sizes, the brute-force
-member state) are copied from the JAX package.
+registry. The host helpers (bucketing, padding sizes, lane padding, the
+brute-force member state) are copied from the JAX package.
 """
 from __future__ import annotations
 
@@ -56,7 +62,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.accel.eval_torch import TorchEvaluator
-from repro_torch.core.accel.lowering import stack_tensors
+from repro_torch.core.accel.lowering import DeviceTensors, stack_tensors
 from repro_torch.core.accel.search_loops import (
     DeviceRuleBased,
     DeviceSA,
@@ -82,14 +88,45 @@ __all__ = ["fleet_brute_force", "fleet_annealing", "fleet_rule_based",
            "bucket_indices", "bucket_key"]
 
 
-def _check_devices(devices: Optional[int]) -> None:
-    """The ``devices`` kwarg shared by the fleet entry points: ``None`` is
-    one card; sharding a bucket's lanes over several is not ported yet."""
-    if devices is not None:
-        raise NotImplementedError(
-            f"devices={devices}: sharding a fleet bucket's lanes over "
-            f"several cards is not ported to torch yet (ROADMAP Queue 1, "
-            f"item 9)")
+def _fleet_mesh(devices: Optional[int], device):
+    """Resolve the ``devices`` kwarg shared by the fleet entry points:
+    ``None`` keeps the unsharded bucket program; an int D gives the D
+    shards' devices (``runtime.device_mesh``), the bucket being built on
+    the first. Returns ``(mesh_or_None, D, the device to build on)``."""
+    if devices is None:
+        return None, 1, device
+    from repro_torch.runtime import device_mesh
+    mesh = device_mesh(devices, device)
+    return mesh, len(mesh), mesh[0]
+
+
+def _pad_lanes(P: int, D: int) -> int:
+    """Bucket lane count padded up so the ``dev`` axis divides it: ragged
+    device counts ride on no-op lanes (``take=0`` for brute force,
+    ``cap=0`` for rule-based, a duplicated lane otherwise — all discarded
+    on the host side), the same inert-lane contract the fleets already
+    use for members that run out of work."""
+    return -(-P // D) * D
+
+
+def _shards(mesh, P_pad: int, *stacks) -> list:
+    """``(device, lo, hi, slices)`` of each shard: lanes ``[lo, hi)`` of
+    every lane-stacked tensor or ``DeviceTensors`` in ``stacks``, on the
+    shard's device (views when the device is theirs already)."""
+    Pl = P_pad // len(mesh)
+    on = lambda x, lo, dev: (
+        DeviceTensors(*(f[lo:lo + Pl].to(dev) for f in x))
+        if isinstance(x, DeviceTensors) else x[lo:lo + Pl].to(dev))
+    return [(dev, d * Pl, (d + 1) * Pl,
+             tuple(on(x, d * Pl, dev) for x in stacks))
+            for d, dev in enumerate(mesh)]
+
+
+def _gather_lanes(outs) -> list:
+    """The shards' outputs (tuples of [Pl, ...] tensors) read back and
+    joined along the lane axis, as numpy arrays."""
+    return [np.concatenate([o[i].cpu().numpy() for o in outs])
+            for i in range(len(outs[0]))]
 
 
 def _same_program(members, what: str) -> None:
@@ -317,9 +354,10 @@ def fleet_brute_force(problems: Sequence, include_cuts: bool = False,
     BUCKET's wall time (members search simultaneously — per-problem times
     don't sum). The empty cut set is one partition and takes no segmented
     reduction; every chunk of a cut set with a cut takes one segred launch
-    for the whole bucket.
+    for the whole bucket (one a shard under ``devices=D``, whose ragged
+    lane counts pad with ``take = 0`` lanes).
     """
-    _check_devices(devices)
+    mesh, D, device = _fleet_mesh(devices, device)
     results: List[Optional[OptimResult]] = [None] * len(problems)
     with _trace.span("fleet.bucketing", problems=len(problems),
                      optimiser="brute_force") as bsp:
@@ -350,16 +388,19 @@ def fleet_brute_force(problems: Sequence, include_cuts: bool = False,
         _same_program(tevs, "fleet_brute_force")
         static = tevs[0].static
         t = _to(tevs[0].device)
-        A = stack_tensors([tv.arrays for tv in tevs])
+        P = len(members)
+        P_pad = _pad_lanes(P, D)
+        A = stack_tensors([tv.arrays for tv in tevs]
+                          + [tevs[0].arrays] * (P_pad - P))
         idt = np.int64                            # A's integers are int64
         B = min(batch_size, _pow2ceil(max(m.total for m in members)))
 
         def absorb(entry):
-            out, takes_np, cb_np_k = entry
+            outs, takes_np, cb_np_k = entry
             # blocking readback: this span, not the async chunk dispatch,
             # absorbs the device compute time
             with _trace.span("fleet.d2h.bf_chunk"):
-                objs, bi_si, bi_so, bi_kk = (x.cpu().numpy() for x in out)
+                objs, bi_si, bi_so, bi_kk = _gather_lanes(outs)
             for mi, m in enumerate(members):
                 take = int(takes_np[mi])
                 if take > 0:
@@ -370,10 +411,18 @@ def fleet_brute_force(problems: Sequence, include_cuts: bool = False,
         for k in range(K):
             tables = [m.tables_for(k, n_pad, s_pad, mm_pad, idt)
                       for m in members]
+            # no-op lanes padding P up to a multiple of the shard count
+            # reuse the inert-tables shape (take stays 0 for them)
+            tables += [(np.full((3, n_pad), s_pad, idt),
+                        np.ones((3, n_pad, mm_pad), idt),
+                        np.zeros(max(n_pad - 1, 0), bool), None)
+                       ] * (P_pad - P)
             sigma_d = t(np.stack([tb[0] for tb in tables]))
             T_d = t(np.stack([tb[1] for tb in tables]))
             cb_np = np.stack([tb[2] for tb in tables])
             cb_d = t(cb_np)
+            if mesh is not None:
+                shards = _shards(mesh, P_pad, A, sigma_d, T_d, cb_d)
             max_parts = 1 + max(len(tb[3]) for tb in tables
                                 if tb[3] is not None)
             active = [tb[3] is not None and not m.stopped
@@ -385,8 +434,8 @@ def fleet_brute_force(problems: Sequence, include_cuts: bool = False,
             # and matches the per-problem loop's accounting exactly.
             pending: List[tuple] = []
             while True:
-                takes = np.zeros(len(members), np.int64)
-                descs = np.zeros((len(members), s_pad, 4), idt)
+                takes = np.zeros(P_pad, np.int64)
+                descs = np.zeros((P_pad, s_pad, 4), idt)
                 descs[:, :, 0] = 1
                 descs[:, :, 2] = 1
                 descs[:, :, 3] = 1
@@ -412,11 +461,23 @@ def fleet_brute_force(problems: Sequence, include_cuts: bool = False,
                         m.stopped = True
                 if not takes.any():
                     break
-                with _metrics.device_dispatch("fleet_bf_chunk", bucket=bi):
-                    out = _bf_chunk_core(static, B, k == 0, A, t(descs),
-                                         sigma_d, T_d, cb_d, t(takes),
-                                         max_parts)
-                pending.append((out, takes, cb_np))
+                if mesh is None:
+                    with _metrics.device_dispatch("fleet_bf_chunk",
+                                                  bucket=bi):
+                        outs = [_bf_chunk_core(static, B, k == 0, A,
+                                               t(descs), sigma_d, T_d, cb_d,
+                                               t(takes), max_parts)]
+                else:
+                    with _metrics.device_dispatch("fleet_bf_chunk_shard",
+                                                  bucket=bi, devices=D):
+                        descs_d, takes_d = t(descs), t(takes)
+                        outs = [_bf_chunk_core(
+                            static, B, k == 0, A_s, descs_d[lo:hi].to(dev),
+                            sig_s, T_s, cb_s, takes_d[lo:hi].to(dev),
+                            max_parts)
+                            for dev, lo, hi, (A_s, sig_s, T_s, cb_s)
+                            in shards]
+                pending.append((outs, takes, cb_np))
                 if len(pending) > 1:
                     absorb(pending.pop(0))
             for entry in pending:       # drain at the cut-set boundary
@@ -459,10 +520,32 @@ def _stack_lanes(tensors) -> torch.Tensor:
     return torch.stack(list(tensors))
 
 
-def _rb_stack(rbs) -> tuple:
+def _cloned(gen: torch.Generator, device=None) -> torch.Generator:
+    """A new generator on ``device`` (default: ``gen``'s) in ``gen``'s
+    state: it draws what ``gen`` would draw next, without advancing it."""
+    g = torch.Generator(device=gen.device if device is None else device)
+    g.set_state(gen.get_state())
+    return g
+
+
+def _gen_on(gen: torch.Generator, device) -> torch.Generator:
+    """``gen`` itself where it lives on ``device``; else its clone there
+    (a CUDA generator's state is a seed and an offset, which every card
+    continues alike)."""
+    return gen if gen.device == torch.device(device) else \
+        _cloned(gen, device)
+
+
+def _rb_stack(rbs, mesh=None):
     """The lane-stacked device tables of rule-based lanes built at shared
     pads: ``(A, menus, menu_sizes, clamp, amort)``, each with a leading
-    lane axis."""
+    lane axis. With a ``mesh`` (``_fleet_mesh``), the lanes padded with
+    copies of lane 0's up to a multiple of the shard count, split into
+    the shards' ``(device, lo, hi, tables)`` (``_shards``)."""
+    if mesh is not None:
+        pad = _pad_lanes(len(rbs), len(mesh)) - len(rbs)
+        return _shards(mesh, len(rbs) + pad,
+                       *_rb_stack(rbs + [rbs[0]] * pad))
     return (stack_tensors([r.A for r in rbs]),
             _stack_lanes(r.menus for r in rbs),
             _stack_lanes(r.menu_sizes for r in rbs),
@@ -471,7 +554,7 @@ def _rb_stack(rbs) -> tuple:
 
 
 def _rb_round(rbs, pending, stacked, *, bucket, rnd: int,
-              d2h_span: str) -> list:
+              d2h_span: str, mesh=None) -> list:
     """One lockstep round of rule-based lanes, shared by
     ``fleet_rule_based`` and the service's ``run_rule_based_lockstep``.
 
@@ -482,10 +565,17 @@ def _rb_round(rbs, pending, stacked, *, bucket, rnd: int,
     of ``rbs``: one read of the loop condition and two segred launches a
     step, whatever the lane count), reads the lanes back under
     ``d2h_span`` and unpacks them. Returns the responses, None where
-    nothing was pending."""
+    nothing was pending.
+
+    With a ``mesh`` (``stacked`` then ``_rb_stack(rbs, mesh)``) it makes
+    one call a shard over the shard's lanes, padding lanes as ``cap == 0``
+    lanes, every shard before the readback. Each shard takes the round's
+    ``max_parts``, so every row adds as many partition terms as it does
+    unsharded."""
     static, gran = rbs[0].static, rbs[0].gran
     t = _to(rbs[0].device)
-    P, n_pad = len(rbs), static.n_nodes
+    P = len(rbs) if mesh is None else _pad_lanes(len(rbs), len(mesh))
+    n_pad = static.n_nodes
     E = max(n_pad - 1, 0)
     si = np.ones((P, n_pad), np.int64)
     so = np.ones((P, n_pad), np.int64)
@@ -502,14 +592,22 @@ def _rb_round(rbs, pending, stacked, *, bucket, rnd: int,
          cap[li]) = rbs[li].pack_request(v, part)
     max_parts = 1 + max(len(req[0].cuts) for req in pending
                         if req is not None)
-    A_st, menus_st, sizes_st, clamp_st, amort = stacked
-    with _metrics.device_dispatch("fleet_rb_descend", bucket=bucket,
-                                  round=rnd):
-        out = _rb_descend_core(
-            static, gran, A_st, menus_st, sizes_st, clamp_st, t(si), t(so),
-            t(kk), t(cb), t(pm), t(pidx), amort, t(cap), max_parts)
+    req = [t(x) for x in (si, so, kk, cb, pm, pidx, cap)]
+    call = lambda A_st, menus_st, sizes_st, clamp_st, amort, req: \
+        _rb_descend_core(static, gran, A_st, menus_st, sizes_st, clamp_st,
+                         *req[:6], amort, req[6], max_parts)
+    if mesh is None:
+        with _metrics.device_dispatch("fleet_rb_descend", bucket=bucket,
+                                      round=rnd):
+            outs = [call(*stacked, req)]
+    else:
+        with _metrics.device_dispatch("fleet_rb_descend_shard",
+                                      bucket=bucket, round=rnd,
+                                      devices=len(mesh)):
+            outs = [call(*tables, [x[lo:hi].to(dev) for x in req])
+                    for dev, lo, hi, tables in stacked]
     with _trace.span(d2h_span):
-        o_si, o_so, o_kk, pts = (x.cpu().numpy() for x in out)
+        o_si, o_so, o_kk, pts = _gather_lanes(outs)
     return [None if req is None else
             rbs[li].unpack(req[0], o_si[li], o_so[li], o_kk[li], pts[li])
             for li, req in enumerate(pending)]
@@ -535,7 +633,9 @@ def fleet_annealing(problems: Sequence, seed: int = 0,
     own generator, seeded with ``seed``, exactly what its single-problem
     run draws (its node draw bounded by its own node count). As in
     ``fleet_brute_force``, each result's ``seconds`` is its bucket's wall
-    time (members sweep simultaneously).
+    time (members sweep simultaneously). Under ``devices=D`` a ragged
+    bucket pads with duplicates of lane 0, each drawing from its own clone
+    of lane 0's generator, so that no two lanes share a generator.
     """
     from repro_torch.core.optimizers.annealing import (
         LADDER_SPREAD,
@@ -543,7 +643,7 @@ def fleet_annealing(problems: Sequence, seed: int = 0,
     )
 
     chains = max(chains, 1)
-    _check_devices(devices)
+    mesh, D, device = _fleet_mesh(devices, device)
     results: List[Optional[OptimResult]] = [None] * len(problems)
     with _trace.span("fleet.bucketing", problems=len(problems),
                      optimiser="annealing") as bsp:
@@ -573,8 +673,14 @@ def fleet_annealing(problems: Sequence, seed: int = 0,
             ev0s.append(ev0)
             scales.append(_scale_for(ev0, objective_scale))
             states.append(sa.init_state(v0, ev0, chains, seed))
+        # ragged-shard padding: duplicates of lane 0, never read back
+        pad = _pad_lanes(len(members), D) - len(members)
+        sas_p = sas + [sas[0]] * pad
+        states += [dict(states[0], gen=_cloned(states[0]["gen"]))
+                   for _ in range(pad)]
+        scales += [scales[0]] * pad
         temps = torch.tensor([[k_start * (LADDER_SPREAD ** c)
-                               for c in range(chains)]] * len(members),
+                               for c in range(chains)]] * len(sas_p),
                              dtype=fdt, device=dev)
 
         if max_iters is not None:
@@ -583,20 +689,42 @@ def fleet_annealing(problems: Sequence, seed: int = 0,
             total_sweeps = max(1, math.ceil(math.log(k_min / k_start)
                                             / math.log(cooling)))
 
-        state = {k: _stack_lanes(st[k] for st in states)
-                 for k in states[0] if k != "gen"}
-        state["gen"] = [st["gen"] for st in states]
-        with _metrics.device_dispatch("fleet_sa_sweeps", bucket=bi,
-                                      sweeps=total_sweeps):
-            state_st, _, traces = _sa_sweeps(
+        keys = [k for k in states[0] if k != "gen"]
+        stacks = (stack_tensors([s.A for s in sas_p]),
+                  _stack_lanes(s.menus for s in sas_p),
+                  _stack_lanes(s.menu_sizes for s in sas_p),
+                  _stack_lanes(s.clamp for s in sas_p),
+                  _stack_lanes(s.kv_fix for s in sas_p), temps,
+                  *(_stack_lanes(st[k] for st in states) for k in keys))
+        n_valid = [s.n_real for s in sas_p]
+        gens = [st["gen"] for st in states]
+        max_parts = max(s.max_parts for s in sas)
+
+        def sweeps(lo, hi, dev, A, menus, menu_sizes, clamp, kv_fix, tmp,
+                   *st):
+            state = dict(zip(keys, st))
+            state["gen"] = [_gen_on(g, dev) for g in gens[lo:hi]]
+            return _sa_sweeps(
                 sas[0].static, sas[0].gran, sas[0].has_cut_edges,
-                total_sweeps, [s.n_real for s in sas],
-                stack_tensors([s.A for s in sas]),
-                _stack_lanes(s.menus for s in sas),
-                _stack_lanes(s.menu_sizes for s in sas),
-                _stack_lanes(s.clamp for s in sas),
-                _stack_lanes(s.kv_fix for s in sas), state, temps, scales,
-                cooling, k_min, None, max(s.max_parts for s in sas))
+                total_sweeps, n_valid[lo:hi], A, menus, menu_sizes, clamp,
+                kv_fix, state, tmp, scales[lo:hi], cooling, k_min, None,
+                max_parts)
+
+        if mesh is None:
+            with _metrics.device_dispatch("fleet_sa_sweeps", bucket=bi,
+                                          sweeps=total_sweeps):
+                state_st, _, traces = sweeps(0, len(members), dev, *stacks)
+        else:
+            with _metrics.device_dispatch("fleet_sa_sweeps_shard",
+                                          bucket=bi, sweeps=total_sweeps,
+                                          devices=D):
+                outs = [sweeps(lo, hi, sd, *sl)
+                        for sd, lo, hi, sl in _shards(mesh, len(sas_p),
+                                                      *stacks)]
+            state_st = {k: torch.cat([o[0][k].to(dev) for o in outs])
+                        for k in keys}
+            traces = tuple(torch.cat([o[2][i].to(dev) for o in outs], dim=1)
+                           for i in range(2))
         with _trace.span("fleet.d2h.sa_traces"):
             tr = torch.stack([traces[0].to(torch.float64),
                               traces[1].to(torch.float64)]).cpu().numpy()
@@ -667,10 +795,13 @@ def fleet_rule_based(problems: Sequence,
     per-problem loop would — per-problem bit-identity holds only for
     ``time_budget_s=None``. ``optimise_portfolio`` therefore routes
     budgeted rule-based portfolios through the per-problem loop.
+
+    ``devices=D`` makes each round one descent call a shard
+    (``_rb_round``); ragged lane counts pad with ``cap = 0`` lanes.
     """
     from repro_torch.core.optimizers.rule_based import _algorithm2
 
-    _check_devices(devices)
+    mesh, D, device = _fleet_mesh(devices, device)
     results: List[Optional[OptimResult]] = [None] * len(problems)
     with _trace.span("fleet.bucketing", problems=len(problems),
                      optimiser="rule_based") as bsp:
@@ -689,7 +820,7 @@ def fleet_rule_based(problems: Sequence,
                                pad_lut=lut_pad, tables=tb)
                for p, tb in zip(members, tabs)]
         _same_program(rbs, "fleet_rule_based")
-        stacked = _rb_stack(rbs)
+        stacked = _rb_stack(rbs, mesh)
 
         gens = [_algorithm2(p, time_budget_s, multi_start) for p in members]
         pending: List[Optional[tuple]] = []
@@ -703,7 +834,7 @@ def fleet_rule_based(problems: Sequence,
         rnd = 0
         while any(req is not None for req in pending):
             resps = _rb_round(rbs, pending, stacked, bucket=bi, rnd=rnd,
-                              d2h_span="fleet.d2h.rb_descend")
+                              d2h_span="fleet.d2h.rb_descend", mesh=mesh)
             rnd += 1
             for li, resp in enumerate(resps):
                 if resp is None:

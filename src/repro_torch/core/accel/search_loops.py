@@ -414,7 +414,7 @@ def absorb_improvements(objs: np.ndarray, best_obj: float, points: int,
     return None, best_obj
 
 
-def _bf_decode_digits(B: int, idt, desc):
+def _bf_decode_digits(B: int, idt, desc, start: int = 0):
     """Per-slot digits of a chunk, [..., B, S+1] from [..., S, 4]
     descriptors (last column: the sentinel slot, always digit 0).
 
@@ -423,8 +423,12 @@ def _bf_decode_digits(B: int, idt, desc):
     offset ``b``); for a fast slot it is ``((a + off) // b) % size``. The
     host reduced the global index modulo stride/period BEFORE building the
     descriptor, so everything here is small even for > 2^63 spaces.
+
+    ``start`` offsets the chunk-local rows: shard d of a sharded chunk
+    decodes rows ``[start, start + B)`` of the SAME descriptor, so D
+    shards reproduce the unsharded digits exactly.
     """
-    off = torch.arange(B, dtype=idt, device=desc.device)[:, None]
+    off = start + torch.arange(B, dtype=idt, device=desc.device)[:, None]
     row = lambda k: desc[..., k].unsqueeze(-2)                  # [..., 1, S]
     kind, a, b, size = row(0), row(1), row(2), row(3)
     digit_slow = torch.remainder(a + (off >= b).to(idt), size)
@@ -438,21 +442,24 @@ def _bf_decode_digits(B: int, idt, desc):
 
 def _bf_eval_part(static: StaticSpec, B: int, no_cut: bool,
                   A: DeviceTensors, si, so, kk, cb_row, take,
-                  max_parts: Optional[int] = None):
+                  max_parts: Optional[int] = None, start: int = 0):
     """Evaluate one decoded chunk of each lane ([P, B, n] folds, [P, n-1]
     cut rows, ``take`` an int or [P]): [P, B] objectives (inf where
     infeasible or past the lane's ``take``) and each lane's fold rows of
     its first minimum (an all-inf chunk gives row 0, which the host
     ignores: nothing improved). One problem's [B, n] is the P = 1 case.
-    ``max_parts`` bounds the partitions of the chunk (``_eval_core``)."""
+    ``max_parts`` bounds the partitions of the chunk (``_eval_core``);
+    ``start`` is the rows' offset in a sharded chunk, so that the
+    ``off < take`` mask stays chunk-global."""
     if si.dim() == 2:
         out = _bf_eval_part(static, B, no_cut, lifted(A), si[None],
                             so[None], kk[None], cb_row[None], take,
-                            max_parts)
+                            max_parts, start)
         return tuple(x[0] for x in out)
     n = static.n_nodes
     P = si.shape[0]
-    off = torch.arange(B, dtype=A.batch.dtype, device=A.batch.device)
+    off = start + torch.arange(B, dtype=A.batch.dtype,
+                               device=A.batch.device)
     cb = cb_row[:, None, :].expand(P, B, max(n - 1, 0))
     res = _eval_core(static, A, si, so, kk, cb, single_partition=no_cut,
                      max_parts=max_parts)
@@ -466,11 +473,12 @@ def _bf_eval_part(static: StaticSpec, B: int, no_cut: bool,
 
 def _bf_chunk_core(static: StaticSpec, B: int, no_cut: bool,
                    A: DeviceTensors, desc, sigma, T, cb_row, take,
-                   max_parts: Optional[int] = None):
+                   max_parts: Optional[int] = None, start: int = 0):
     """Decode + evaluate one enumeration chunk of B candidates of each lane
     on device: [P, S, 4] descriptors, [P, 3, n] slot tables ``sigma``,
     [P, 3, n, mm] value tables ``T`` (one problem's, without the lane
-    axis, is the P = 1 case).
+    axis, is the P = 1 case). ``start`` makes it rows
+    ``[start, start + B)`` of the chunk (one shard of a sharded chunk).
 
     Construction is three gathers through the precomputed propagation
     tables (see ``_construction_tables``); no on-device propagation.
@@ -478,25 +486,58 @@ def _bf_chunk_core(static: StaticSpec, B: int, no_cut: bool,
     if desc.dim() == 2:
         out = _bf_chunk_core(static, B, no_cut, lifted(A), desc[None],
                              sigma[None], T[None], cb_row[None], take,
-                             max_parts)
+                             max_parts, start)
         return tuple(x[0] for x in out)
     n = static.n_nodes
     P = desc.shape[0]
-    digits = _bf_decode_digits(B, A.batch.dtype, desc).transpose(1, 2)
+    digits = _bf_decode_digits(B, A.batch.dtype, desc,
+                               start).transpose(1, 2)
     S1 = digits.shape[1]                                  # [P, S+1, B]
     dig = torch.gather(digits[:, None].expand(P, 3, S1, B), 2,
                        sigma[..., None].expand(P, 3, n, B))
     val = torch.gather(T, 3, dig)                         # [P, 3, n, B]
     si, so, kk = (val[:, v].transpose(1, 2).contiguous() for v in range(3))
     return _bf_eval_part(static, B, no_cut, A, si, so, kk, cb_row, take,
-                         max_parts)
+                         max_parts, start)
+
+
+def _bf_chunk_shards(static: StaticSpec, B: int, no_cut: bool, shards,
+                     desc, take, max_parts: Optional[int]) -> list:
+    """One chunk of one problem split over D shards (the port of the JAX
+    package's ``_bf_shard_chunk``): shard d decodes and evaluates rows
+    ``[d B/D, (d+1) B/D)`` of the same descriptor on its device
+    (``shards[d] = (device, (A, sigma, T, cb_row))``, lanes of 1). Every
+    shard is launched before anything is read back; returns each shard's
+    ``_bf_chunk_core`` output, for ``_bf_shard_combine``."""
+    Bl = B // len(shards)
+    return [_bf_chunk_core(static, Bl, no_cut, A, desc.to(dev), sigma, T,
+                           cb_row, take, max_parts, start=d * Bl)
+            for d, (dev, (A, sigma, T, cb_row)) in enumerate(shards)]
+
+
+def _bf_shard_combine(outs: list):
+    """The chunk's [B] objectives on the host (one readback) and the
+    winning shard's fold rows of its first minimum.
+
+    The combine is JAX's ``pmin`` and masked ``psum``: the first shard
+    whose minimum is the chunk's minimum wins. Shard order is enumeration
+    order and each shard's pick is its first minimum, so the winner's row
+    is the chunk's first minimum; an all-inf chunk gives shard 0's row 0,
+    as the unsharded chunk gives its row 0. A shard wholly past ``take``
+    holds only inf and cannot win a tie."""
+    home = outs[0][0].device
+    objs = torch.cat([o[0].to(home) for o in outs], dim=-1)[0].cpu().numpy()
+    local = objs.reshape(len(outs), -1).min(axis=1)
+    win = int(np.argmax(local == local.min()))
+    return objs, outs[win][1:]
 
 
 @torch.no_grad()
 def brute_force_torch(problem, include_cuts: bool, max_cuts: int,
                       max_points: Optional[int],
                       time_budget_s: Optional[float], batch_size: int,
-                      device=None, dtype=None) -> OptimResult:
+                      device=None, dtype=None,
+                      devices: Optional[int] = None) -> OptimResult:
     """The torch engine behind ``optimizers.brute_force(engine="torch")``.
 
     Same enumeration order (hence the same optimum and history) as the
@@ -506,6 +547,11 @@ def brute_force_torch(problem, include_cuts: bool, max_cuts: int,
     ``B = min(batch_size, pow2ceil(points per cut set))`` rows. The empty
     cut set is evaluated as one partition, which needs no segmented
     reduction; a cut set with a cut takes the segred kernel.
+
+    ``devices=D`` splits each chunk's row axis over the D shards of
+    ``runtime.device_mesh(D, device)`` (``_bf_chunk_shards``), with ``B``
+    rounded up to a multiple of D; the history is chunking-invariant, so
+    the results are bitwise those of ``devices=None`` for any D.
     """
     from repro_torch.core.optimizers.brute_force import (
         _clamp_tables,
@@ -525,11 +571,20 @@ def brute_force_torch(problem, include_cuts: bool, max_cuts: int,
     max_menu = max(sizes, default=1)
     n = len(graph.nodes)
 
+    mesh = None
+    if devices is not None:
+        from repro_torch.runtime import device_mesh
+        mesh = device_mesh(devices, device)
+        device = mesh[0]
     tev = TorchEvaluator.from_problem(problem, device=device, dtype=dtype)
     static, A = tev.static, lifted(tev.arrays)
     dev = tev.device
     idt = np.int64                                # A's integers are int64
     B = min(batch_size, _pow2ceil(total))
+    if mesh is not None:
+        D = len(mesh)
+        B = -(-B // D) * D        # D | B (chunk boundaries may move; the
+        #                           history is chunking-invariant)
     t = lambda a: torch.from_numpy(a).to(dev)
 
     base = backend.initial(graph).with_cuts(())
@@ -555,6 +610,10 @@ def brute_force_torch(problem, include_cuts: bool, max_cuts: int,
             for c in cuts:
                 cb_row[c] = True
             cb_row_d = t(cb_row)[None]
+            if mesh is not None:    # (``.to`` its own device is a no-op)
+                shards = [(d, (DeviceTensors(*(x.to(d) for x in A)),
+                               sigma_d.to(d), T_d.to(d), cb_row_d.to(d)))
+                          for d in mesh]
 
             produced = 0
             while produced < total:
@@ -566,13 +625,25 @@ def brute_force_torch(problem, include_cuts: bool, max_cuts: int,
                     break
                 desc = chunk_descriptor(strides, sizes, produced, take,
                                         len(slots), idt)
-                with _metrics.device_dispatch("bf_chunk", take=take):
-                    objs, bi_si, bi_so, bi_kk = _bf_chunk_core(
-                        static, B, not cuts, A, t(desc)[None], sigma_d,
-                        T_d, cb_row_d, take, len(cuts) + 1)
-                # the chunk's one blocking readback
-                with _trace.span("accel.d2h.bf_chunk", take=take):
-                    objs = objs[0, :take].cpu().numpy().astype(np.float64)
+                if mesh is None:
+                    with _metrics.device_dispatch("bf_chunk", take=take):
+                        objs, bi_si, bi_so, bi_kk = _bf_chunk_core(
+                            static, B, not cuts, A, t(desc)[None], sigma_d,
+                            T_d, cb_row_d, take, len(cuts) + 1)
+                    # the chunk's one blocking readback
+                    with _trace.span("accel.d2h.bf_chunk", take=take):
+                        objs = objs[0, :take].cpu().numpy().astype(
+                            np.float64)
+                else:
+                    with _metrics.device_dispatch("bf_chunk_shard",
+                                                  take=take, devices=D):
+                        outs = _bf_chunk_shards(static, B, not cuts, shards,
+                                                t(desc)[None], take,
+                                                len(cuts) + 1)
+                    with _trace.span("accel.d2h.bf_chunk", take=take):
+                        objs, (bi_si, bi_so, bi_kk) = \
+                            _bf_shard_combine(outs)
+                        objs = objs[:take].astype(np.float64)
                 if _trace.enabled():
                     _metrics.histogram("accel.bf.feasible_fraction").observe(
                         float(np.isfinite(objs).mean()) if take else 0.0)
@@ -1222,6 +1293,7 @@ __all__ = ["VARS", "propagate_torch", "repair_torch", "build_sa_tables",
            "chunk_descriptor", "absorb_improvements", "brute_force_torch",
            "SweepDraws", "sa_draws", "DeviceSA", "DeviceRuleBased",
            "_bf_decode_digits", "_bf_eval_part", "_bf_chunk_core",
+           "_bf_chunk_shards", "_bf_shard_combine",
            "_construction_tables", "_masked_choice", "_sa_sweep_step",
            "_sa_sweeps", "_rb_step", "_rb_descend_core", "_scatter_triple",
            "_scope_mask", "_pad_row"]

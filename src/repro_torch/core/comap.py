@@ -35,9 +35,9 @@ explorer than the host's by design, so its contract is determinism for
 a seed and fleet == per-lane loop.
 
 Only the engine dispatch of ``joint_search`` and the fleet kwarg sets
-(``device`` where the JAX package has ``devices``) differ from the JAX
-package's module. ``devices=`` (ROADMAP Queue 1, item 9) raises
-``NotImplementedError``.
+(``device`` beside the JAX package's ``devices``) differ from the JAX
+package's module. ``devices=D`` reaches the fleet, which shards each
+bucket's lanes over D devices, bitwise ``devices=None``.
 """
 from __future__ import annotations
 
@@ -102,10 +102,10 @@ class CoMapPlan:
 #: per-lane loop, which the fleet is bit-identical to anyway
 FLEET_KWARGS = {
     "brute_force": {"include_cuts", "max_cuts", "max_points",
-                    "batch_size", "device"},
+                    "batch_size", "devices", "device"},
     "annealing": {"seed", "k_start", "k_min", "cooling", "max_iters",
-                  "objective_scale", "chains", "device"},
-    "rule_based": {"multi_start", "device"},
+                  "objective_scale", "chains", "devices", "device"},
+    "rule_based": {"multi_start", "devices", "device"},
 }
 
 
@@ -117,11 +117,6 @@ def joint_search(cp: CoMapProblem, optimiser: str = "rule_based",
     if optimiser not in OPTIMIZERS:
         raise ValueError(f"unknown optimiser {optimiser!r}; choose from "
                          f"{sorted(OPTIMIZERS)}")
-    if optimiser_kwargs.get("devices") is not None:
-        raise NotImplementedError(
-            f"devices={optimiser_kwargs['devices']}: sharding the joint "
-            f"search's lanes over several cards is not ported to torch "
-            f"yet (ROADMAP Queue 1, item 9)")
     eng = resolve_engine(engine)
     t0 = time.monotonic()
     menu = cp.resolved_splits()

@@ -15,7 +15,9 @@ Three engines (``core/accel`` registry; ``batched`` is an alias for
       (the recorded objective values are float32; float64 is reachable
       only through ``search_loops.brute_force_torch(dtype=...)``, for
       tests). ``device="cpu"`` runs it on the CPU with the kernel's plain
-      version.
+      version. ``devices=D`` splits each chunk's rows over D shards
+      (``runtime.device_mesh``: the cards, or D logical shards of
+      ``device``), bitwise the ``devices=None`` result for any D.
   numpy — the product space is enumerated in chunked batches
       (``batch_size`` points per call) through the vectorised
       ``core/batched_eval.py`` array program. Candidate construction mirrors
@@ -53,10 +55,10 @@ def optimise(problem: Problem,
              device=None) -> OptimResult:
     from repro_torch.core.accel import resolve_engine
     engine = resolve_engine(engine)
-    if devices is not None:
-        raise NotImplementedError(
-            f"devices={devices}: sharded chunk enumeration is not ported to "
-            f"torch yet (ROADMAP Queue 1, item 9)")
+    if devices is not None and engine != "torch":
+        raise ValueError(
+            f"devices={devices} requires the torch engine (sharded chunk "
+            f"enumeration); engine={engine!r}")
     if engine != "torch" and device is not None:
         raise ValueError(f"device= applies to the torch engine only; "
                          f"engine resolved to {engine!r}")
@@ -67,7 +69,7 @@ def optimise(problem: Problem,
         from repro_torch.core.accel.search_loops import brute_force_torch
         result = brute_force_torch(problem, include_cuts, max_cuts,
                                    max_points, time_budget_s, batch_size,
-                                   device=device)
+                                   device=device, devices=devices)
     else:
         result = _optimise_batched(problem, include_cuts, max_cuts,
                                    max_points, time_budget_s, batch_size)

@@ -49,8 +49,12 @@ split of its leading mesh axis between them part of the search: every
 ``core/accel/comap_fleet.py``), and the per-net optima are combined into
 the composite objective on the host in float64.
 
-The ``devices=`` axis (ROADMAP Queue 1, item 9) is still to port;
-``devices=`` raises ``NotImplementedError`` naming item 9.
+``devices=D`` shards the search over D devices (``runtime.device_mesh``:
+the cards, or D logical shards of ``device``), with results bitwise those
+of ``devices=None``: brute force splits each chunk's rows
+(``optimise_mapping(optimiser="brute_force", devices=D)``), the fleets
+each bucket's lanes (``optimise_portfolio`` and ``optimise_comapping``).
+On one card the shards run one after another.
 """
 from __future__ import annotations
 
@@ -102,7 +106,8 @@ def optimise_mapping(arch: ArchConfig, shape: ShapeSpec,
                      **optimiser_kwargs) -> ShardingPlan:
     """``engine`` selects the evaluation engine (see the module docstring);
     None keeps the optimiser's default (torch). Remaining kwargs go to the
-    optimiser entry point (``device=`` among them)."""
+    optimiser entry point (``device=`` among them, and brute force's
+    ``devices=``)."""
     if optimiser not in OPTIMIZERS:
         raise ValueError(f"unknown optimiser {optimiser!r}; known: "
                          f"{sorted(OPTIMIZERS)}")
@@ -124,10 +129,10 @@ def optimise_mapping(arch: ArchConfig, shape: ShapeSpec,
 #: the kwargs each fleet takes; anything else runs the per-problem loop
 FLEET_KWARGS = {
     "brute_force": {"include_cuts", "max_cuts", "max_points",
-                    "batch_size", "device"},
+                    "batch_size", "devices", "device"},
     "annealing": {"seed", "k_start", "k_min", "cooling", "max_iters",
-                  "objective_scale", "chains", "device"},
-    "rule_based": {"multi_start", "device"},
+                  "objective_scale", "chains", "devices", "device"},
+    "rule_based": {"multi_start", "devices", "device"},
 }
 
 
@@ -168,16 +173,17 @@ def optimise_portfolio(archs: Sequence, shapes,
     ``pipeline.portfolio.coalesced`` counter records how many); budgeted
     calls keep per-duplicate runs. ``results``, a list, receives each
     problem's ``OptimResult`` (points and improvement history, which a plan
-    does not hold), in input order. ``devices=`` is ROADMAP Queue 1, item
-    9, and raises ``NotImplementedError``.
+    does not hold), in input order.
+
+    ``devices=D`` (torch engine only) shards each fleet bucket's lanes
+    over D devices, bitwise ``devices=None``. Brute force may also take
+    it on the per-problem loop (each problem's chunks sharded); SA and
+    rule-based kwargs that force the loop raise ``ValueError`` rather
+    than drop it.
     """
     from repro_torch.configs import get_arch
     from repro_torch.core.accel import resolve_engine
 
-    if devices is not None:
-        raise NotImplementedError(
-            f"devices={devices}: sharded fleets are not ported to torch yet "
-            f"(ROADMAP Queue 1, item 9)")
     # Validate the three input sequences up front with clear errors: a
     # silent zip truncation (or a bare string iterated character by
     # character) used to surface as a baffling failure deep in the
@@ -240,6 +246,12 @@ def optimise_portfolio(archs: Sequence, shapes,
             _metrics.counter("pipeline.portfolio.coalesced").inc(
                 len(alias_of))
     run_problems = [problems[i] for i in unique_idx]
+    if devices is not None:
+        if eng != "torch":
+            raise ValueError(
+                f"devices={devices} requires the torch engine (sharded "
+                f"fleets); engine resolved to {eng!r}")
+        optimiser_kwargs["devices"] = devices
     if eng == "torch" and set(optimiser_kwargs) <= FLEET_KWARGS[optimiser]:
         from repro_torch.core.accel.fleet import (
             fleet_annealing,
@@ -258,6 +270,13 @@ def optimise_portfolio(archs: Sequence, shapes,
         for r in found:
             _metrics.note_result(r, engine="fleet")
     else:
+        if "devices" in optimiser_kwargs and optimiser != "brute_force":
+            extra = sorted(set(optimiser_kwargs)
+                           - FLEET_KWARGS.get(optimiser, set()))
+            raise ValueError(
+                f"devices= for optimiser {optimiser!r} is only available "
+                f"on the fleet path; kwargs {extra} forced the "
+                f"per-problem loop, which has no sharded engine")
         with _trace.span("pipeline.optimise_portfolio.loop",
                          optimiser=optimiser, engine=eng,
                          problems=len(run_problems)):
@@ -336,8 +355,8 @@ def optimise_comapping(archs: Sequence, shape: ShapeSpec,
     an infeasible co-mapping (e.g. fewer leading-axis slices than nets)
     returns ``feasible=False`` with no plans rather than raising. The
     torch engine runs on the card unless ``device="cpu"`` is passed;
-    ``devices=`` (ROADMAP Queue 1, item 9) raises
-    ``NotImplementedError``."""
+    ``devices=D`` shards the fleet's lanes over D devices, bitwise
+    ``devices=None``."""
     from repro_torch.core.comap import CoMapPlan, joint_search
 
     with _trace.span("pipeline.optimise_comapping", nets=len(archs),

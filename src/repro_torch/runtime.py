@@ -5,6 +5,12 @@
 the CPU says so (``device="cpu"``), and then every kernel wrapper takes its
 plain PyTorch version.
 
+``device_mesh(devices, device)`` lists the devices of the D shards that a
+``devices=D`` search runs, in shard order (the counterpart of the JAX
+package's ``runtime_config.device_mesh``). The shards are driven from the
+host, so several may share one device: on one card they run one after
+another.
+
 Floats are float32 by default (the JAX engine's dtype without x64) and
 float64 on request. Importing this module pins float32 matmuls to full
 precision: ``_eval_core``'s one-hot segment sums are einsums, and TF32 keeps
@@ -12,7 +18,7 @@ about three decimal digits, which would break the float32 contract.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import List, Optional, Union
 
 import torch
 
@@ -41,6 +47,29 @@ def resolve_device(device: Union[None, str, torch.device] = None
     return default_device() if device is None else torch.device(device)
 
 
+def device_mesh(devices: int,
+                device: Union[None, str, torch.device] = None
+                ) -> List[torch.device]:
+    """The devices of the D = ``devices`` shards of a sharded search, in
+    shard order.
+
+    ``device=None``: shard d runs on ``cuda:(d % cards)``, so D shards
+    spread over the visible cards and, where D exceeds them, share them.
+    With no card it raises ``EngineUnavailable``. An explicit ``device``
+    holds every shard (``device="cpu"``: D logical CPU shards).
+    ``devices < 1`` raises ``ValueError``."""
+    if int(devices) < 1:
+        raise ValueError(f"device_mesh needs >= 1 device, got {devices}")
+    if device is None:
+        default_device()
+        cards = torch.cuda.device_count()
+        return [torch.device("cuda", d % cards) for d in range(int(devices))]
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return [dev] * int(devices)
+
+
 def resolve_dtype(dtype: Optional[torch.dtype] = None) -> torch.dtype:
     dtype = torch.float32 if dtype is None else dtype
     if dtype not in FLOAT_DTYPES:
@@ -49,5 +78,5 @@ def resolve_dtype(dtype: Optional[torch.dtype] = None) -> torch.dtype:
     return dtype
 
 
-__all__ = ["default_device", "resolve_device", "resolve_dtype",
-           "FLOAT_DTYPES"]
+__all__ = ["default_device", "resolve_device", "device_mesh",
+           "resolve_dtype", "FLOAT_DTYPES"]

@@ -329,8 +329,15 @@ def test_max_points_time_budget_and_devices(monkeypatch):
     # a spent time budget stops after the first chunk, as the jax engine
     res = brute_force(port, time_budget_s=0.0, device="cpu", batch_size=64)
     assert res.points == 64
-    with pytest.raises(NotImplementedError, match="item 9"):
-        brute_force(port, devices=2, device="cpu")
+    # devices=2: two logical CPU shards, bitwise the unsharded run; a
+    # host engine raises as the JAX package's does for its non-jax ones
+    kw = dict(max_points=100, device="cpu", batch_size=64)
+    sharded, plain = brute_force(port, devices=2, **kw), brute_force(port,
+                                                                     **kw)
+    assert (sharded.points, sharded.variables, sharded.history) == \
+        (plain.points, plain.variables, plain.history)
+    with pytest.raises(ValueError, match="requires the torch engine"):
+        brute_force(port, engine="numpy", devices=2)
     with pytest.raises(ValueError, match="device= applies"):
         brute_force(port, engine="numpy", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):

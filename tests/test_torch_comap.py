@@ -256,19 +256,23 @@ def test_rule_based_terminates_on_non_pow2_submesh():
 
 
 def test_engines_devices_and_no_fallback(monkeypatch):
-    """``jax`` is an unknown engine here; ``devices=`` is ROADMAP item 9;
-    with no card and no ``device="cpu"`` the torch engine raises
-    ``EngineUnavailable`` instead of running on the CPU."""
+    """``jax`` is an unknown engine here; ``devices=2`` shards the fleet's
+    lanes, bitwise the unsharded search; with no card and no
+    ``device="cpu"`` the torch engine raises ``EngineUnavailable`` instead
+    of running on the CPU."""
     with pytest.raises(ValueError, match="unknown engine"):
         TCM.joint_search(_cp(), engine="jax")
     with pytest.raises(ValueError, match="unknown optimiser"):
         TCM.joint_search(_cp(), optimiser="magic")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TCM.joint_search(_cp(), engine="torch", devices=2)
+    kw = dict(engine="torch", multi_start=False, device="cpu")
+    assert _bitwise(TCM.joint_search(_cp(), devices=2, **kw),
+                    TCM.joint_search(_cp(), **kw))
     from repro_torch.configs.base import ShapeSpec
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TP.optimise_comapping(_archs("repro_torch"),
-                              ShapeSpec(*TINY_SHAPES["train"]), devices=2)
+    plans = [TP.optimise_comapping(_archs("repro_torch"),
+                                   ShapeSpec(*TINY_SHAPES["train"]),
+                                   devices=devices, **kw).plans
+             for devices in (2, None)]
+    assert plans[0] == plans[1]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(EngineUnavailable):
         TCM.joint_search(_cp(), optimiser="rule_based")

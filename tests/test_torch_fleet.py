@@ -495,13 +495,16 @@ def test_optimise_portfolio_validation_and_devices():
                                objective=(o for o in
                                           ["latency", "throughput"]), **kw)
     assert len(plans) == 2
-    for call in (lambda: optimise_portfolio(archs, S, PLAT, devices=2,
-                                            device="cpu"),
-                 lambda: TF.fleet_brute_force([], devices=2),
-                 lambda: TF.fleet_annealing([], devices=2),
-                 lambda: TF.fleet_rule_based([], devices=2)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            call()
+    # devices=: the torch engine's fleets shard their lanes, bitwise the
+    # unsharded call; another engine raises as the JAX package's does
+    with pytest.raises(ValueError, match="requires the torch engine"):
+        optimise_portfolio(archs, S, PLAT, devices=2, **kw)
+    torch_kw = dict(kw, engine="torch", device="cpu")
+    assert optimise_portfolio(archs, S, PLAT, devices=2, **torch_kw) == \
+        optimise_portfolio(archs, S, PLAT, **torch_kw)
+    for fleet in (TF.fleet_brute_force, TF.fleet_annealing,
+                  TF.fleet_rule_based):
+        assert fleet([], devices=2, device="cpu") == []
 
 
 def test_optimise_portfolio_coalesces_and_routes_budgets_to_the_loop(

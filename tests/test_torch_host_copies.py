@@ -163,9 +163,9 @@ HELPER_VERBATIM = {
     "core/accel/search_loops.py": ("_pow2ceil", "_construction_tables",
                                    "chunk_descriptor",
                                    "absorb_improvements", "build_sa_tables"),
-    "core/accel/fleet.py": ("NODE_TIER", "_node_tier", "_platform_pads",
-                            "_bucket_key", "bucket_key", "bucket_indices",
-                            "_BFMember", "_bucket_tables"),
+    "core/accel/fleet.py": ("_pad_lanes", "NODE_TIER", "_node_tier",
+                            "_platform_pads", "_bucket_key", "bucket_key",
+                            "bucket_indices", "_BFMember", "_bucket_tables"),
     "core/accel/lowering.py": ("FINGERPRINT_ARRAYS",
                                "FINGERPRINT_INDEX_SETS"),
 }

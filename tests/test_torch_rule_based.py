@@ -128,10 +128,12 @@ def test_engine_selection_and_errors(monkeypatch):
         rule_based(port, engine="numpy", device="cpu")
     arch = reduced(get_arch("tinyllama-1.1b"))
     shape = ShapeSpec("train_tiny", 256, 16, "train")
-    # the sharded brute-force chunks are still to port (Queue 1, item 9)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        optimise_mapping(arch, shape, optimiser="brute_force", devices=2,
-                         device="cpu")
+    # devices=2 reaches the sharded brute-force chunks: two logical CPU
+    # shards, the plan of the unsharded run
+    bf = dict(optimiser="brute_force", max_points=200, batch_size=64,
+              device="cpu")
+    assert optimise_mapping(arch, shape, devices=2, **bf) == \
+        optimise_mapping(arch, shape, **bf)
     with pytest.raises(ValueError, match="unknown optimiser"):
         optimise_mapping(arch, shape, optimiser="genetic")
     # no card and no device="cpu": the default engine raises, it does not
