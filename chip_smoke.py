@@ -76,7 +76,8 @@ phase's failure is caught while the run goes on:
               bitwise their per-problem torch run (each timed), segred
               once at [P, n]
               and once at [P x probes, n] a lockstep step; (b) SA, spmd,
-              64 chains x 342 sweeps, every lane bitwise its per-problem
+              64 chains x 342 sweeps, at (a)'s depth cut,
+              every lane bitwise its per-problem
               torch run and its incumbent the numpy engine's in float64,
               segred once a sweep a bucket; (c) brute force, megatron,
               one-cut sets, 16,384 points a problem, every lane equal to
@@ -145,10 +146,33 @@ phase's failure is caught while the run goes on:
               version (2e-2 and one bfloat16 rounding step), the loss held to the ``attn_impl="ref"`` model
               (1e-3 relative) and the logits within 1.5 times that model's
               distance from the same model with attention in float64
+  12. serve  ``repro_torch.launch.serve`` (prefill into a KV/state cache,
+              then greedy decode) for tinyllama-1.1b, rwkv6-1.6b and
+              granite-moe-1b-a400m (attention + 32-expert top-8 MoE) at
+              full width: (a) the first 2 layers, float32 recipe weights
+              and cache, B=1, a 16-token prompt, 8 tokens through
+              ``generate``: tokens equal to the JAX record ``SERVE_RECORD``
+              (``tools/serve_records.py``: JAX's eager ``forward`` with a
+              cache, in a greedy loop), sampled logits within 1e-3; (b)
+              all layers, bfloat16 weights drawn on the card from a seed,
+              B=8, prompt 512, 64 tokens through ``serve``: prefill ms,
+              decode tokens/s, peak memory; segred's launches (the plan),
+              none of wkv6 or flash_attn (decode against a cache takes the
+              oracles, as in JAX); at every generated position the decode
+              logits within 1.5 times the distance between the cache-less
+              forward over the served sequence and the same forward with
+              attention / WKV in float64, and each served token's logit in
+              that forward within twice the step's decode-vs-recompute
+              distance of its row's maximum; (c) the (b) weights in float32
+              with a float32 cache: decode logits within 1e-3 abs and rel
+              of the cache-less float32 forward, the same token rule; (d)
+              granite's drops at decode (T = 8, cap 2) equal to a host
+              recount from the routed expert ids
 
-  12. profile (only with ``--profile``) the first mapping request, each
-              [search] request (SA: spmd/latency), [fleet] (b) and (c), and
-              one forward of each LM
+  13. profile (only with ``--profile``) the first mapping request, each
+              [search] request (SA: spmd/latency), [fleet] (b) and (c),
+              one forward of each LM, one 16-token ``generate`` of each
+              [serve] arch
               once more under ``torch.profiler``: device busy time, the idle
               share, the kernel's share and the kernels that take the most
               device time, beside the wall time; and
@@ -341,6 +365,118 @@ DENSE_RECORD = {
 }
 DENSE_FULL = {"arch": "tinyllama-1.1b", "batch": 2, "seq": 4096, "seed": 1,
               "runs": 3}
+
+#: [serve] (a): the JAX package's greedy decode (eager ``forward`` with a
+#: float32 cache, ``attn_impl="chunked"``) of the port's seeded numpy recipe
+#: weights in float32 (seed 0) at full width, layers 0-2, B=1, a 16-token
+#: prompt drawn by numpy.random.default_rng(0), 8 tokens: each arch's tokens
+#: and [step, vocabulary id, logit] at ids 0, 1, V/2 - 1, V - 1 and the
+#: token picked; made on the CPU by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=src python tools/serve_records.py
+SERVE_RECORD = {
+    "layers": 2, "batch": 1, "prompt": 16, "gen": 8,
+    "seed": 0,
+    "archs": {
+        "tinyllama-1.1b": {
+            "tokens": [19385, 17345, 23033, 23033, 9270, 18382, 1456, 23117],
+            "logits": [
+                [0, 0, -0.09123747795820236], [0, 1, 0.3629232943058014],
+                [0, 15999, 1.3188098669052124],
+                [0, 31999, -1.2313435077667236],
+                [0, 19385, 3.8585352897644043], [1, 0, 0.24855493009090424],
+                [1, 1, 1.1287550926208496], [1, 15999, 1.5670682191848755],
+                [1, 31999, -2.073335647583008], [1, 17345, 3.7826037406921387],
+                [2, 0, 0.5344075560569763], [2, 1, -0.17194993793964386],
+                [2, 15999, 1.1726064682006836], [2, 31999, -1.124801754951477],
+                [2, 23033, 4.102609634399414], [3, 0, -0.3699527084827423],
+                [3, 1, 1.0329910516738892], [3, 15999, 2.2967331409454346],
+                [3, 31999, -2.6048920154571533], [3, 23033, 4.229915142059326],
+                [4, 0, -0.7000188827514648], [4, 1, 0.7658599615097046],
+                [4, 15999, 2.3301055431365967],
+                [4, 31999, -3.1734535694122314], [4, 9270, 3.963569164276123],
+                [5, 0, -1.8560236692428589], [5, 1, 0.3670615255832672],
+                [5, 15999, 1.5163583755493164],
+                [5, 31999, -0.5158844590187073], [5, 18382, 3.911478042602539],
+                [6, 0, -0.38066402077674866], [6, 1, 0.29278650879859924],
+                [6, 15999, 0.8836110234260559],
+                [6, 31999, -0.6195105910301208], [6, 1456, 4.133967876434326],
+                [7, 0, -1.652590036392212], [7, 1, 0.2258222997188568],
+                [7, 15999, 1.1803570985794067],
+                [7, 31999, -1.8662647008895874], [7, 23117, 4.312603950500488],
+            ],
+        },
+        "rwkv6-1.6b": {
+            "tokens": [19680, 48891, 38757, 41216, 25320, 38025, 61519, 42070],
+            "logits": [
+                [0, 0, -1.262556791305542], [0, 1, -1.4548230171203613],
+                [0, 32767, -0.251025915145874],
+                [0, 65535, -0.8823198080062866], [0, 19680, 4.110400676727295],
+                [1, 0, 0.2148725688457489], [1, 1, -0.2893804609775543],
+                [1, 32767, -0.856128454208374], [1, 65535, -1.20017671585083],
+                [1, 48891, 4.346399784088135], [2, 0, 0.2814742624759674],
+                [2, 1, 0.24246729910373688], [2, 32767, 0.3741786777973175],
+                [2, 65535, 0.2062566876411438], [2, 38757, 4.2520294189453125],
+                [3, 0, 0.8409181237220764], [3, 1, 0.07124227285385132],
+                [3, 32767, -1.147958755493164],
+                [3, 65535, -1.4795690774917603], [3, 41216, 4.70811128616333],
+                [4, 0, 1.0039544105529785], [4, 1, -1.5675451755523682],
+                [4, 32767, -0.3644137382507324],
+                [4, 65535, -1.3351086378097534], [4, 25320, 4.191018581390381],
+                [5, 0, -0.6293029189109802], [5, 1, 0.7186969518661499],
+                [5, 32767, -2.3126866817474365],
+                [5, 65535, -0.2686547338962555],
+                [5, 38025, 4.3736162185668945], [6, 0, -1.155954122543335],
+                [6, 1, -0.9889763593673706], [6, 32767, -1.5021227598190308],
+                [6, 65535, 1.3497062921524048], [6, 61519, 4.297268390655518],
+                [7, 0, 1.2672464847564697], [7, 1, 0.40387511253356934],
+                [7, 32767, -0.5662556886672974],
+                [7, 65535, 0.07267521321773529], [7, 42070, 4.073941230773926],
+            ],
+        },
+        "granite-moe-1b-a400m": {
+            "tokens": [10534, 24424, 8729, 14998, 14998, 14998, 40740, 9681],
+            "logits": [
+                [0, 0, 1.0002717971801758], [0, 1, 0.8543857336044312],
+                [0, 24576, 0.6275671124458313], [0, 49154, 0.529547393321991],
+                [0, 10534, 4.2335286140441895], [1, 0, 0.8899856209754944],
+                [1, 1, 0.34974074363708496], [1, 24576, 0.7085403800010681],
+                [1, 49154, 0.22407382726669312],
+                [1, 24424, 3.7594752311706543], [2, 0, 0.4280596971511841],
+                [2, 1, 0.9133598804473877], [2, 24576, 0.7359110116958618],
+                [2, 49154, -0.033283088356256485],
+                [2, 8729, 4.096592903137207], [3, 0, 0.4659002423286438],
+                [3, 1, 0.45809778571128845], [3, 24576, 1.0375478267669678],
+                [3, 49154, 0.10242340713739395],
+                [3, 14998, 3.8533217906951904], [4, 0, 0.8017266392707825],
+                [4, 1, 0.475180447101593], [4, 24576, 0.6925418376922607],
+                [4, 49154, 0.5884645581245422], [4, 14998, 3.974213123321533],
+                [5, 0, 1.0515938997268677], [5, 1, 0.3051034212112427],
+                [5, 24576, 0.7877378463745117], [5, 49154, 0.8066006898880005],
+                [5, 14998, 3.8639392852783203], [6, 0, 1.2431914806365967],
+                [6, 1, 0.2540797293186188], [6, 24576, 0.8795329928398132],
+                [6, 49154, 0.8683710694313049], [6, 40740, 3.809196710586548],
+                [7, 0, 0.9115217924118042], [7, 1, 0.8175631165504456],
+                [7, 24576, 0.08683758974075317],
+                [7, 49154, 0.35074523091316223], [7, 9681, 4.016693115234375],
+            ],
+        },
+    },
+}
+#: [serve] (b) and (c): each arch at full width and depth through
+#: ``repro_torch.launch.serve.serve``, B prompts of ``prompt`` tokens and
+#: ``gen`` greedy tokens; weights and prompts drawn on the card from
+#: ``seed``
+SERVE = {"archs": ("tinyllama-1.1b", "rwkv6-1.6b", "granite-moe-1b-a400m"),
+         "batch": 8, "prompt": 512, "gen": 64, "seed": 1}
+#: [serve] (a): sampled logits within this of the record (tokens exact)
+SERVE_RECORD_TOL = 1e-3
+#: [serve] (c): float32 decode logits within this abs and rel of the
+#: cache-less float32 forward over the served sequence
+SERVE_F32_TOL = 1e-3
+#: the token rule: a served token's logit in the cache-less forward lies
+#: within this many times the step's decode-vs-recompute distance of its
+#: row's largest logit (a near tie may flip a token, a wrong token may not)
+SERVE_TOKEN_SLACK = 2.0
 
 
 def fail(msg: str) -> None:
@@ -1158,8 +1294,8 @@ def phase_search(smi_line):
 #: to its time aim; ``tools/fleet_rb_depth.py`` times (a) at several
 #: depths), every lane equal to the numpy engine and the ``torch_loop``
 #: lanes to their per-problem torch run; (b) SA on the spmd
-#: backend, 64 chains on the default schedule, every lane equal to its
-#: per-problem torch run; (c) brute force on the megatron backend with cut
+#: backend, 64 chains on the default schedule, at the same depth cut,
+#: every lane equal to its per-problem torch run; (c) brute force on the megatron backend with cut
 #: sets of one cut, ``max_points`` a problem, every lane equal to the numpy
 #: engine and to its per-problem torch run
 FLEET = {
@@ -1168,7 +1304,7 @@ FLEET = {
            "duplicate": "tinyllama-1.1b",
            "torch_loop": ("llama3.2-1b", "tinyllama-1.1b",
                           "jamba-1.5-large-398b"), "kw": {}},
-    "sa": {"backend": "spmd", "exec_model": "spmd",
+    "sa": {"backend": "spmd", "exec_model": "spmd", "layers": 12,
            "kw": {"seed": 0, "chains": 64}, "sweeps": 342},
     "bf": {"backend": "megatron", "exec_model": "spmd",
            "kw": {"include_cuts": True, "max_cuts": 1,
@@ -2490,6 +2626,296 @@ def phase_lm_dense():
     return model, batch, out
 
 
+def _serve_prompts(vocab, batch, prompt, seed):
+    """[serve] (a)'s prompt: ``tools/serve_records.py``'s draw."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, vocab, (batch, prompt)).astype(np.int32)
+
+
+def _serve_record_check(name, rec):
+    """(a) float32 recipe weights, the first layers at full width, greedy
+    through ``generate`` with a float32 cache: tokens equal to the JAX
+    record, sampled logits within SERVE_RECORD_TOL."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import convert
+    from repro_torch.models.model import Model
+
+    arch = get_arch(name)
+    want = rec["archs"][name]
+    model = Model(arch, layer_range=(0, rec["layers"]), attn_impl="chunked",
+                  remat=False, device="meta")
+    shapes = {k: tuple(t.shape) for k, t in model.state_dict().items()}
+    model.load_state_dict(convert.params_from_jax(
+        convert.nest(convert.recipe_params(shapes, rec["seed"])),
+        device="cuda", dtype=torch.float32), strict=True, assign=True)
+    prompts = torch.from_numpy(_serve_prompts(
+        arch.vocab_size, rec["batch"], rec["prompt"], rec["seed"])).cuda()
+    tokens, stats = generate(model, prompts, rec["gen"],
+                             cache_dtype=torch.float32, keep_logits=True)
+    got = tokens[0].tolist()
+    logits = stats["logits"][0]
+    err = max(abs(float(logits[step, v]) - x) for step, v, x in
+              want["logits"])
+    if got != want["tokens"] or not err <= SERVE_RECORD_TOL:
+        fail(f"[serve] (a) {name}: tokens {got} vs JAX record "
+             f"{want['tokens']}; sampled logits off by {err:.3g} (limit "
+             f"{SERVE_RECORD_TOL})")
+    say("serve", f"(a) {name} layers 0-{rec['layers']} float32, B="
+                 f"{rec['batch']}, prompt {rec['prompt']}, {rec['gen']} "
+                 f"tokens: equal to the JAX record; sampled logits max abs "
+                 f"err {err:.3g}")
+    return {"arch": name, "tokens": got, "logit_max_abs_err": err}
+
+
+def _recompute(model, prompts, tokens, positions, oracle=None, oracle64=None):
+    """Logits of the cache-less forward over the served sequence (prompt,
+    then every served token but the last) at ``positions``; with
+    ``oracle``, the same forward with ``ref.<oracle>`` replaced by
+    ``oracle64``. The MoE blocks route the token groups that serving
+    routed: the prompt as one group (the prefill), then each later
+    position as its own group of B tokens (a decode step). A block's
+    capacity, ``max(1, int(1.25 * T * top_k / E))``, and so which
+    assignments drop, depends on its group's size T: the forward over
+    the whole sequence as one group is another function (at T = 8 a
+    32-expert top-8 block drops assignments, at T = 4600 none)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.models import moe
+    P = prompts.shape[1]
+    seq = torch.cat([prompts, tokens[:, :-1]], dim=1)
+    apply_moe = moe.apply_moe
+
+    def grouped(x, p, **kw):
+        return torch.cat([apply_moe(x[:, :P], p, **kw)]
+                         + [apply_moe(x[:, t:t + 1], p, **kw)
+                            for t in range(P, x.shape[1])], dim=1)
+
+    kept = getattr(ref, oracle) if oracle else None
+    if oracle:
+        setattr(ref, oracle, oracle64)
+    moe.apply_moe = grouped
+    try:
+        logits, _ = model({"tokens": seq})
+    finally:
+        moe.apply_moe = apply_moe
+        if oracle:
+            setattr(ref, oracle, kept)
+    return logits[:, positions].float()
+
+
+def _token_rule(full, tokens, gaps):
+    """The largest share of the token rule's slack that a served token
+    uses: at each step, the gap between the recompute's row maximum and
+    the served token's recompute logit over SERVE_TOKEN_SLACK times the
+    step's decode-vs-recompute distance (<= 1 holds; a 0 distance allows
+    only the row's maximum itself)."""
+    import torch
+    picked = torch.gather(full, -1, tokens.long()[..., None])[..., 0]
+    short = (full.amax(dim=-1) - picked).amax(dim=0)        # (gen,)
+    slack = SERVE_TOKEN_SLACK * gaps
+    used = torch.where(slack > 0, short / slack.clamp(min=1e-30),
+                       torch.where(short > 0, torch.inf, 0.0))
+    return float(used.max()), short
+
+
+def _moe_recount(records, batch):
+    """The decode calls' drops (T = batch) on the device against a host
+    recount from the routed expert ids: stable sort by expert, rank in
+    the expert's run, kept below ``cap``. Returns (decode calls, device
+    drops, host drops, whether every kept mask agreed)."""
+    import numpy as np
+    calls = dev = host = 0
+    agree = True
+    for r in records:
+        ids = r["expert_ids"].cpu().numpy()
+        if ids.shape[0] != batch:
+            continue
+        calls += 1
+        keep = r["keep"].cpu().numpy()
+        flat = ids.reshape(-1)
+        srt = flat[np.argsort(flat, kind="stable")]
+        start = np.r_[0, np.flatnonzero(srt[1:] != srt[:-1]) + 1]
+        ranks = np.arange(srt.size) - np.repeat(start, np.diff(
+            np.r_[start, srt.size]))
+        host_keep = ranks < r["cap"]
+        dev += int((~keep).sum())
+        host += int((~host_keep).sum())
+        agree &= bool((keep == host_keep).all())
+    return calls, dev, host, agree
+
+
+def _serve_full(name, smi_line):
+    """(b) the arch at full width and depth, bf16 weights drawn from a
+    seed, through ``serve``: prefill ms, decode tokens/s, peak memory;
+    the decode logits of every generated position held to the cache-less
+    forward over the served sequence within LOGIT_YARDSTICK times that
+    forward's largest distance over the generated positions from the same
+    forward with attention / WKV in float64, and the token rule. (c) the
+    same weights in float32 through ``generate`` with a float32 cache,
+    held to the cache-less float32 forward (SERVE_F32_TOL abs and rel)
+    with the token rule. (d) for a MoE arch, the decode calls' drops
+    against a host recount."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.accel import segred
+    from repro_torch.kernels import flash_attention, rwkv6_scan
+    from repro_torch.launch.serve import generate, serve
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, build_segments
+
+    cfg = SERVE
+    arch = get_arch(name)
+    B, P, G = cfg["batch"], cfg["prompt"], cfg["gen"]
+    kinds = {k for seg in build_segments(arch) for k in seg.pattern}
+    oracle, oracle64 = (("rwkv6", _wkv_float64) if "rwkv_tmix" in kinds else
+                        ("attention_chunked", _attention_float64))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    segred.LAUNCHES = flash_attention.LAUNCHES = rwkv6_scan.LAUNCHES = 0
+    moe.RECORD = []
+    lines = []
+    t0 = time.perf_counter()
+    try:
+        tokens, stats = serve(arch, prompt_len=P, gen_len=G, batch=B,
+                              seed=cfg["seed"], keep_logits=True,
+                              log=lines.append)
+    finally:
+        records, moe.RECORD = moe.RECORD, None
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {"segred": segred.LAUNCHES, "wkv6": rwkv6_scan.LAUNCHES,
+                "flash_attn": flash_attention.LAUNCHES}
+    if launches["wkv6"] or launches["flash_attn"]:
+        fail(f"[serve] (b) {name}: the serve path launched {launches}; "
+             f"decode against a cache takes the oracles, as in JAX")
+    if tuple(tokens.shape) != (B, G) or tokens.dtype != torch.int32 or \
+            not bool(((tokens >= 0) & (tokens < arch.vocab_size)).all()):
+        fail(f"[serve] (b) {name}: tokens {tuple(tokens.shape)} "
+             f"{tokens.dtype}, expected ({B}, {G}) int32 in the vocabulary")
+
+    # the served model and prompts again, drawn as serve draws them
+    dev = torch.device("cuda")
+    model = Model(arch, attn_impl="chunked", remat=False, device=dev,
+                  generator=torch.Generator(dev).manual_seed(cfg["seed"]))
+    prompts = torch.randint(0, arch.vocab_size, (B, P),
+                            generator=torch.Generator(dev).manual_seed(
+                                cfg["seed"] + 1),
+                            dtype=torch.int32, device=dev)
+    positions = torch.arange(P - 1, P + G - 1, device=dev)
+    dec = stats.pop("logits")
+    full = _recompute(model, prompts, tokens, positions)
+    full64 = _recompute(model, prompts, tokens, positions, oracle, oracle64)
+    gaps = (dec - full).abs().amax(dim=(0, 2))               # (gen,)
+    yard = (full - full64).abs().amax(dim=(0, 2))
+    finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
+    # the yardstick is the distance over all the generated positions: at
+    # one position alone it is one draw of a noisy distance (PERF.md)
+    yard_used = float(gaps.max()
+                      / (LOGIT_YARDSTICK * yard.max()).clamp(min=1e-30))
+    token_used, short = _token_rule(full, tokens, gaps)
+    if not finite or not yard_used <= 1.0 or not token_used <= 1.0:
+        fail(f"[serve] (b) {name}: finite={finite}; decode logits vs the "
+             f"cache-less forward by position {gaps.tolist()}, beyond "
+             f"{LOGIT_YARDSTICK} x that forward's largest distance from "
+             f"float64 {oracle} (by position {yard.tolist()}; "
+             f"{yard_used:.3g} of the limit); "
+             f"token rule {token_used:.3g} of its slack (row max less the "
+             f"served token's logit {short.tolist()})")
+    out = {"arch": name, "layers": arch.num_layers, "batch": B, "prompt": P,
+           "gen": G, "serve_wall_s": wall,
+           "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+           "decode_tok_per_s": stats["decode_tok_per_s"],
+           "partitions": stats["partitions"], "peak_bytes": peak,
+           "launches": launches, "log": lines,
+           "decode_vs_recompute": gaps.tolist(),
+           "recompute_vs_float64": yard.tolist(),
+           "yardstick_used": yard_used, "token_rule_used": token_used}
+    say("serve", f"(b) {name}, {arch.num_layers} layers bfloat16, B={B}, "
+                 f"prompt {P}, {G} tokens: prefill "
+                 f"{stats['prefill_s'] * 1e3:.1f} ms, decode "
+                 f"{stats['decode_tok_per_s']:.1f} tokens/s "
+                 f"({stats['decode_s']:.3f} s), serve() {wall:.2f} s with "
+                 f"plan and weights; peak memory {peak / 2**30:.2f} GiB; "
+                 f"{smi_line}; launches {launches}")
+    ratio = float((gaps / yard.clamp(min=1e-30)).max())
+    say("serve", f"(b) {name}: decode vs cache-less logits max "
+                 f"{float(gaps.max()):.3g} over the {G} positions "
+                 f"({yard_used:.3g} of {LOGIT_YARDSTICK} x the forward's "
+                 f"largest distance from float64 {oracle}, "
+                 f"{float(yard.max()):.3g}; position by position the "
+                 f"largest ratio {ratio:.3g}); token rule {token_used:.3g} "
+                 f"of its slack")
+    del full, full64, dec
+
+    if "moe" in kinds:
+        calls, dev_drops, host_drops, agree = _moe_recount(records, B)
+        if not calls or dev_drops != host_drops or not agree:
+            fail(f"[serve] (d) {name}: {calls} decode MoE calls, "
+                 f"{dev_drops} drops on the device vs {host_drops} "
+                 f"recounted on the host (kept masks agree: {agree})")
+        out["moe_decode"] = {"calls": calls, "dropped": dev_drops,
+                             "assignments": calls * B
+                             * arch.experts_per_token}
+        cap = moe.capacity(B, arch.experts_per_token, arch.num_experts)
+        say("serve", f"(d) {name}: {calls} decode MoE calls (T = {B}, cap "
+                     f"{cap}), {dev_drops} of "
+                     f"{out['moe_decode']['assignments']} assignments "
+                     f"dropped, equal to the host recount")
+    del records
+
+    # (c) the same weights in float32, against the cache-less float32 forward
+    weights = {k: t.float() for k, t in model.state_dict().items()}
+    del model
+    model = Model(arch, attn_impl="chunked", remat=False, device="meta")
+    model.load_state_dict(weights, strict=True, assign=True)
+    del weights
+    tokens32, st32 = generate(model, prompts, G, cache_dtype=torch.float32,
+                              keep_logits=True)
+    dec = st32.pop("logits")
+    full = _recompute(model, prompts, tokens32, positions)
+    diff = (dec - full).abs()
+    used = float((diff / (SERVE_F32_TOL * (1 + full.abs()))).max())
+    gaps32 = diff.amax(dim=(0, 2))
+    token32, short32 = _token_rule(full, tokens32, gaps32)
+    if not bool(torch.isfinite(dec).all()) or not used <= 1.0 or \
+            not token32 <= 1.0:
+        fail(f"[serve] (c) {name}: float32 decode logits "
+             f"{float(diff.max()):.3g} from the cache-less forward's "
+             f"({used:.3g} of {SERVE_F32_TOL} abs and rel); token rule "
+             f"{token32:.3g} of its slack ({short32.tolist()})")
+    same = float((tokens32 == tokens).float().mean())
+    out["float32"] = {"logit_max_abs_err": float(diff.max()),
+                      "limit_used": used, "token_rule_used": token32,
+                      "prefill_s": st32["prefill_s"],
+                      "decode_tok_per_s": st32["decode_tok_per_s"],
+                      "tokens_equal_to_bf16_share": same}
+    say("serve", f"(c) {name} float32 weights and cache: decode logits max "
+                 f"abs diff {float(diff.max()):.3g} from the cache-less "
+                 f"float32 forward ({used:.3g} of {SERVE_F32_TOL} abs and "
+                 f"rel); token rule {token32:.3g} of its slack; prefill "
+                 f"{st32['prefill_s'] * 1e3:.1f} ms, decode "
+                 f"{st32['decode_tok_per_s']:.1f} tokens/s; {same:.3f} of "
+                 f"the tokens equal the bf16 run's")
+    del model, dec, full, diff
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve(smi_line):
+    """[serve]: (a) each served arch against the JAX record, then (b)-(d)
+    at full depth."""
+    import torch
+    record = [_serve_record_check(name, SERVE_RECORD)
+              for name in SERVE_RECORD["archs"]]
+    torch.cuda.empty_cache()
+    runs = [_serve_full(name, smi_line) for name in SERVE["archs"]]
+    return {"record": record, "runs": runs}
+
+
 def _profile(fn):
     """Device events of ``fn()`` under torch.profiler, summed by kernel."""
     import torch
@@ -2546,6 +2972,62 @@ def phase_profile_lm(phase, model, batch, lm, kernel):
                        f"{row['name']}")
     return out
 
+
+def phase_profile_serve(served):
+    """One ``generate`` of each [serve] (b) arch (the same seeded bf16
+    weights and prompts, 16 tokens) under torch.profiler: device busy time
+    and idle share (against the same call's unprofiled wall) of the
+    prefill and decode together, and device events (kernels and copies) a
+    decode step."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+    cfg, out = SERVE, []
+    for run in served["runs"]:
+        arch = get_arch(run["arch"])
+        dev = torch.device("cuda")
+        model = Model(arch, attn_impl="chunked", remat=False, device=dev,
+                      generator=torch.Generator(dev).manual_seed(cfg["seed"]))
+        prompts = torch.randint(
+            0, arch.vocab_size, (cfg["batch"], cfg["prompt"]),
+            generator=torch.Generator(dev).manual_seed(cfg["seed"] + 1),
+            dtype=torch.int32, device=dev)
+        gen = 16
+        generate(model, prompts, gen)                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        generate(model, prompts, gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        profiled, dev_events, by_name = _profile(
+            lambda: generate(model, prompts, gen))
+        _, step_events, _ = _profile(
+            lambda: generate(model, prompts, 2))
+        device_s = sum(tot for tot, _ in by_name.values()) * 1e-6
+        rec = {"arch": run["arch"], "tokens": gen, "wall_s": wall,
+               "profiled_wall_s": profiled, "device_s": device_s, "device_events": len(dev_events),
+               "events_per_decode_step": (len(dev_events) - len(step_events))
+               / (gen - 2),
+               "idle_share": (1.0 - device_s / wall) if dev_events else None,
+               "top": _top(by_name)}
+        out.append(rec)
+        del model
+        torch.cuda.empty_cache()
+        if not dev_events:
+            say("profile", f"[serve] {run['arch']}: the profiler traced no "
+                           f"device activity: device time not measured")
+            continue
+        say("profile", f"[serve] {run['arch']}, prefill + {gen - 1} decode "
+                       f"steps: {len(dev_events)} device events, device busy "
+                       f"{device_s:.4f} s of {wall:.4f} s wall "
+                       f"(idle share {rec['idle_share']:.4f}); "
+                       f"{rec['events_per_decode_step']:.0f} device events a "
+                       f"decode step")
+        for top in rec["top"]:
+            say("profile", f"  {top['device_s']:.5f} s  x{top['count']}  "
+                           f"{top['name']}")
+    return out
 
 def _is_segred(name):
     """Whether a traced kernel is one of segred's (``segred_kernel``,
@@ -2692,7 +3174,7 @@ def phase_profile_fleet(fleet):
     time and its idle share against the unprofiled wall of the same
     ``optimise_portfolio`` call in phase 6, and segred's device time. (a)
     runs for minutes, too long a trace to take."""
-    from repro_torch.configs import SHAPES_BY_NAME, get_arch
+    from repro_torch.configs import SHAPES_BY_NAME
     from repro_torch.core import pipeline, platform
     out = []
     for row in fleet:
@@ -2701,7 +3183,7 @@ def phase_profile_fleet(fleet):
         cfg = FLEET[row["part"]]
         specs = _fleet_specs(cfg)
         wall, dev, by_name = _profile(lambda: pipeline.optimise_portfolio(
-            [get_arch(n) for n, _, _ in specs],
+            [_fleet_arch(cfg, n) for n, _, _ in specs],
             SHAPES_BY_NAME[FLEET["shape"]],
             [getattr(platform, pl) for _, pl, _ in specs],
             backend=cfg["backend"], optimiser=row["optimiser"],
@@ -2771,6 +3253,8 @@ def main() -> None:
             references.check()
     finally:
         references.stop()
+    with phase_wall("serve"):
+        served = phase_serve(smi_line)
     for row in fleet:
         row.pop("results")
     WALLS["run before --profile"] = time.perf_counter() - t_run
@@ -2785,7 +3269,8 @@ def main() -> None:
                                            "wkv6_chunk_kernel"),
                     "lm-dense": phase_profile_lm("lm-dense", dense_model,
                                                  dense_batch, dense,
-                                                 "flash_attn_mma_kernel")}
+                                                 "flash_attn_mma_kernel"),
+                    "serve": phase_profile_serve(served)}
 
     main_row = next(r for r in rows if (r["N"], r["n"]) == SEGRED_SHAPES[0]
                     and r["dtype"] == "float32" and r["op"] == "max")
@@ -2799,7 +3284,8 @@ def main() -> None:
         "source": "src/repro_torch/csrc/segred.cu",
         "replaces": "src/repro/core/accel/pallas_segred.py:31",
         "launches": launches + search_launches + fleet_launches
-        + comap_launches + service_launches + devices_launches,
+        + comap_launches + service_launches + devices_launches
+        + sum(r["launches"]["segred"] for r in served["runs"]),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -2833,7 +3319,7 @@ def main() -> None:
         "main": runs, "search": search, "fleet": fleet, "comap": comap,
         "service": service, "devices": devices, "lm": lm,
         "walls_s": WALLS,
-        "lm_dense": dense,
+        "lm_dense": dense, "serve": served,
         "profile": profiled, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,6 +10,9 @@ the partition-time reduction in a hand-written kernel (``csrc/segred.cu``).
     from repro_torch.core.pipeline import optimise_mapping
     plan = optimise_mapping(arch, shape, platform, engine="torch")
 
+The LM stack (``models``) and its serve loop (``launch.serve``: prefill,
+then greedy decode against a cache) run on the card as well.
+
 Entry points run on ``cuda``; pass ``device="cpu"`` to run the kernels'
 plain PyTorch versions on the CPU instead (the tests do). Importing the
 package turns TF32 matmuls off (``runtime.py``).

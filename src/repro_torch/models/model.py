@@ -1,5 +1,5 @@
-"""The LM zoo's model, ported for the full-sequence (scoring) forward of
-the dense attention models and RWKV6.
+"""The LM zoo's model, ported for the dense attention models, the MoE
+models and RWKV6: the full-sequence forward and decode against a cache.
 
 The PyTorch counterpart of the JAX package's ``models/model.py``. A model
 is a chain of *segments*; each segment is a homogeneous stack of
@@ -17,14 +17,27 @@ across key for key (``models/convert.py``). ``forward(batch)`` and
 no backward in the port yet.
 
 Ported so far: the ``attn`` / ``ffn`` blocks (rotary self-attention and
-the feed-forward, as dense models such as tinyllama-1.1b chain them) and
-the ``rwkv_tmix`` / ``rwkv_cmix`` blocks, all cache-less. With
+the feed-forward, as dense models such as tinyllama-1.1b chain them), the
+``moe`` block and the ``rwkv_tmix`` / ``rwkv_cmix`` blocks. With
 ``use_flash=True`` attention runs in the hand-written flash-attention
 kernel (``csrc/flash_attn.cu``) and the WKV recurrence in the WKV kernel
 (``csrc/wkv6.cu``), as JAX's ``use_flash`` runs its Pallas kernels;
 ``attn_impl`` picks ``ref``, ``chunked`` or ``flash`` attention directly.
-Other block kinds, a ``cache`` and ``init_cache`` raise
-``NotImplementedError``.
+
+Decode: ``init_cache`` builds JAX's cache tree, and ``forward(batch,
+cache=..., cache_pos=...)`` returns ``(logits, new_cache)`` in that tree.
+The cache is updated in place wherever the new value fits its buffer
+(shape and dtype): attention writes this step's K/V into the caller's
+buffers, and a carried RWKV state is copied into its buffer. Where it does
+not fit, the new leaf is a new tensor, as JAX's is: a float32 model's RWKV
+``shift`` after a prefill into the default bfloat16 cache keeps ``h``'s
+float32. JAX returns a new cache every call and its serve loop donates the
+old one, so in place changes nothing its callers see; a caller that wants
+an old cache again clones it first. Cache-carrying decode takes the
+oracles, as JAX's does: a tensor ``cache_pos`` sends flash attention to
+``ref.attention`` and a carried RWKV state to ``ref.rwkv6``. The ``ssm``
+(ROADMAP Queue 1 item 13c), ``cross_attn`` and ``enc_*`` (item 13d) blocks
+raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -37,6 +50,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
 from repro_torch.runtime import resolve_device
 
@@ -116,6 +130,9 @@ _INIT = {
         arch.norm, device=device),
     "ffn": lambda gen, arch, device: L.init_ffn(
         gen, arch.d_model, arch.d_ff, arch.act, arch.norm, device=device),
+    "moe": lambda gen, arch, device: M.init_moe(
+        gen, arch.d_model, arch.d_ff, arch.num_experts, arch.act, arch.norm,
+        device=device),
     "rwkv_tmix": lambda gen, arch, device: R.init_rwkv_tmix(
         gen, arch.d_model, arch.rwkv_head_size, arch.norm, device=device),
     "rwkv_cmix": lambda gen, arch, device: R.init_rwkv_cmix(
@@ -123,12 +140,17 @@ _INIT = {
 }
 
 
-def _not_ported(what: str) -> NotImplementedError:
+#: ROADMAP Queue 1 items of the block kinds still to port
+_ITEM = {"ssm": "13c", "cross_attn": "13d", "enc_attn": "13d",
+         "enc_ffn": "13d"}
+
+
+def _not_ported(kind: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} is not ported yet: the port runs the cache-less forward of "
-        f"the attn, ffn and RWKV6 blocks only (ROADMAP Queue 1 item 13: the "
-        f"moe, ssm, cross_attn and enc_* blocks, and decode with init_cache "
-        f"and a carried cache or state)")
+        f"block kind {kind!r} is not ported yet: the port runs the attn, "
+        f"ffn, moe and RWKV6 blocks, with and without a decode cache "
+        f"(ROADMAP Queue 1 item {_ITEM.get(kind, '13')}: item 13c the ssm "
+        f"block, item 13d the cross_attn and enc_* blocks)")
 
 
 def _module(tree: Dict[str, Any]) -> nn.Module:
@@ -166,7 +188,7 @@ class Model(nn.Module):
         for seg in self.segments:
             for kind in seg.pattern:
                 if kind not in _INIT:
-                    raise _not_ported(f"block kind {kind!r}")
+                    raise _not_ported(kind)
         self.include_embed = include_embed
         self.include_head = include_head
         self.use_flash = use_flash
@@ -229,11 +251,11 @@ class Model(nn.Module):
                 shard_fns: Optional[Dict[str, Callable]] = None,
                 embedded: Optional[torch.Tensor] = None,
                 head_last_only: bool = False):
-        """Returns (logits, None). ``embedded`` lets multi-partition drivers
-        feed boundary activations; ``head_last_only`` computes logits for
-        the final position only."""
-        if cache is not None or cache_pos is not None:
-            raise _not_ported("a decode cache")
+        """Returns (logits, new_cache); new_cache is None without a
+        ``cache``. ``cache`` enables decode from ``cache_pos`` (an int or a
+        0-d integer tensor); ``embedded`` lets multi-partition callers feed
+        boundary activations; ``head_last_only`` computes logits for the
+        final position only (prefill serving: (B, 1, V))."""
         arch = self.arch
         params = self.params()
         sf = shard_fns or {}
@@ -252,16 +274,24 @@ class Model(nn.Module):
         B, Sq = x.shape[0], x.shape[1]
         positions = batch.get("positions")
         if positions is None:
-            positions = torch.arange(Sq, dtype=torch.int32,
-                                     device=x.device)[None, :].expand(B, Sq)
+            base = cache_pos if cache_pos is not None else 0
+            positions = (base + torch.arange(Sq, dtype=torch.int32,
+                                             device=x.device))
+            positions = positions[None, :].expand(B, Sq)
         mrope = batch.get("mrope_positions") if arch.mrope else None
 
+        new_cache: Dict[str, Any] = {}
         for seg in self.segments:
-            x = self._run_segment(params[seg.name], seg, x, positions, mrope,
-                                  get_sf)
+            seg_cache = cache.get(seg.name) if cache is not None else None
+            x, seg_new_cache = self._run_segment(
+                params[seg.name], seg, x, positions, mrope, get_sf,
+                seg_cache, cache_pos)
+            if cache is not None:
+                new_cache[seg.name] = seg_new_cache
+        new_cache = new_cache if cache is not None else None
 
         if not self.include_head:
-            return x, None
+            return x, new_cache
 
         if head_last_only:
             x = x[:, -1:]
@@ -271,37 +301,59 @@ class Model(nn.Module):
                   else params["head"]["w"])
         logits = x @ w_head
         logits = get_sf("head")(logits, role="inner")
-        return logits, None
+        return logits, new_cache
 
     def _run_segment(self, seg_params, seg: Segment, x, positions, mrope,
-                     get_sf):
+                     get_sf, seg_cache=None, cache_pos=None):
+        """Runs the segment's layers; returns (x, new segment cache), the
+        cache None when ``seg_cache`` is None. Only blocks that have an
+        entry in ``seg_cache`` emit one (ffn and moe are stateless)."""
         arch = self.arch
+        new_leaves: Dict[str, Dict[str, List[torch.Tensor]]] = {}
         for i in range(seg.count):
             for j, kind in enumerate(seg.pattern):
                 pk = f"p{j}_{kind}"
                 p = {name: t[i] for name, t in seg_params[pk].items()}
+                c = None
+                if seg_cache is not None and pk in seg_cache:
+                    c = {name: t[i] for name, t in seg_cache[pk].items()}
                 sfk = get_sf(kind)
                 if kind == "attn":
-                    x, _ = A.attend(
+                    x, nc = A.attend(
                         x, p, num_heads=arch.num_heads,
                         num_kv_heads=arch.num_kv_heads,
                         head_dim=arch.head_dim, norm=arch.norm, causal=True,
                         positions=positions, rope_theta=arch.rope_theta,
-                        mrope_positions=mrope, attn_impl=self.attn_impl,
-                        shard_fn=sfk)
+                        mrope_positions=mrope, cache=c, cache_pos=cache_pos,
+                        attn_impl=self.attn_impl, shard_fn=sfk)
                 elif kind == "ffn":
                     x = L.apply_ffn(x, p, arch.act, arch.norm, shard_fn=sfk)
+                    nc = None
+                elif kind == "moe":
+                    x = M.apply_moe(x, p, top_k=arch.experts_per_token,
+                                    act=arch.act, norm=arch.norm,
+                                    shard_fn=sfk)
+                    nc = None
                 elif kind == "rwkv_tmix":
                     # the sum goes on in float32 to the channel mix
-                    x, _ = R.apply_rwkv_tmix(
+                    x, nc = R.apply_rwkv_tmix(
                         x, p, head_size=arch.rwkv_head_size, norm=arch.norm,
-                        use_kernel=self.use_flash, shard_fn=sfk)
+                        state=c, use_kernel=self.use_flash, shard_fn=sfk)
                 elif kind == "rwkv_cmix":
-                    x, _ = R.apply_rwkv_cmix(x, p, norm=arch.norm,
-                                             shard_fn=sfk)
+                    x, nc = R.apply_rwkv_cmix(x, p, norm=arch.norm, state=c,
+                                              shard_fn=sfk)
                 else:
                     raise ValueError(kind)
-        return x
+                if c is not None:
+                    nc = nc if nc is not None else c
+                    for name, t in nc.items():
+                        new_leaves.setdefault(pk, {}).setdefault(
+                            name, []).append(t)
+        if seg_cache is None:
+            return x, None
+        return x, {pk: {name: _store(seg_cache[pk][name], layers)
+                        for name, layers in leaves.items()}
+                   for pk, leaves in new_leaves.items()}
 
     # ------------------------------------------------------------------
     # losses
@@ -321,8 +373,63 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # caches
     # ------------------------------------------------------------------
-    def init_cache(self, batch_size: int, max_len: int, dtype=None):
-        raise _not_ported("init_cache")
+    def init_cache(self, batch_size: int, max_len: int,
+                   dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
+        """JAX's ``init_cache`` tree: per decoder segment, per block with a
+        state, zeros with a leading ``count`` axis; K/V and RWKV ``shift``
+        in ``dtype``, the RWKV ``wkv`` state in float32. ``device=None`` is
+        where the model's parameters are."""
+        arch = self.arch
+        if device is None:
+            device = next(self.parameters()).device
+
+        def zeros(shape, dt=dtype):
+            return torch.zeros(shape, dtype=dt, device=device)
+
+        cache: Dict[str, Any] = {}
+        for seg in self.segments:
+            seg_cache = {}
+            for j, kind in enumerate(seg.pattern):
+                pk = f"p{j}_{kind}"
+                if kind == "attn":
+                    shape = (seg.count, batch_size, max_len,
+                             arch.num_kv_heads, arch.head_dim)
+                    seg_cache[pk] = {"k": zeros(shape), "v": zeros(shape)}
+                elif kind == "rwkv_tmix":
+                    hs = arch.rwkv_head_size
+                    H = arch.d_model // hs
+                    seg_cache[pk] = {
+                        "shift": zeros((seg.count, batch_size, arch.d_model)),
+                        "wkv": zeros((seg.count, batch_size, H, hs, hs),
+                                     torch.float32),
+                    }
+                elif kind == "rwkv_cmix":
+                    seg_cache[pk] = {"shift": zeros(
+                        (seg.count, batch_size, arch.d_model))}
+            cache[seg.name] = seg_cache
+        return cache
+
+    def cache_shapes(self, batch_size: int, max_len: int,
+                     dtype=torch.bfloat16) -> Dict[str, Any]:
+        """The cache tree on the ``meta`` device: shapes and dtypes,
+        nothing allocated."""
+        return self.init_cache(batch_size, max_len, dtype, device="meta")
+
+
+def _store(buf: torch.Tensor, layers: List[torch.Tensor]) -> torch.Tensor:
+    """A segment's new cache leaf from its layers' new values: ``buf``
+    itself where every layer wrote into it or each value fits ``buf[i]``
+    (copied in place), else the values stacked into a new tensor (a new
+    dtype, as the RWKV ``shift`` of a float32 model after a prefill)."""
+    if all(t.data_ptr() == buf[i].data_ptr() and t.shape == buf[i].shape
+           and t.dtype == buf.dtype for i, t in enumerate(layers)):
+        return buf
+    if all(t.shape == buf.shape[1:] and t.dtype == buf.dtype
+           for t in layers):
+        for i, t in enumerate(layers):
+            buf[i].copy_(t)
+        return buf
+    return torch.stack(layers)
 
 
 def build_model(arch: ArchConfig, **kw) -> Model:

@@ -217,10 +217,14 @@ def test_attend_refuses_what_is_not_ported():
     x = torch.zeros(1, 4, arch.d_model, dtype=torch.bfloat16, device="meta")
     kw = dict(num_heads=arch.num_heads, num_kv_heads=arch.num_kv_heads,
               head_dim=arch.head_dim, norm=arch.norm)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 13d"):
         A.attend(x, p, kv_src=x, **kw)
-    with pytest.raises(NotImplementedError, match="items 13 and 15"):
-        A.attend(x, p, cache={}, **kw)
+    # a decode cache is ported: this step's K/V go into it at cache_pos
+    cache = {"k": torch.zeros(1, 6, arch.num_kv_heads, arch.head_dim,
+                              dtype=torch.bfloat16, device="meta")}
+    cache["v"] = torch.zeros_like(cache["k"])
+    y, new = A.attend(x, p, cache=cache, cache_pos=0, **kw)
+    assert tuple(y.shape) == tuple(x.shape) and new is cache
 
 
 def test_unknown_block_kind_raises_value_error():

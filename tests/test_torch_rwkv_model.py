@@ -223,14 +223,23 @@ def test_recipe_record_reproduces_on_the_port():
 
 
 def test_what_the_slice_leaves_out_raises():
+    """The moe block, the decode cache and ``init_cache`` are ported; the
+    ssm block (jamba) and whisper's cross_attn / enc_* blocks raise, naming
+    their ROADMAP items."""
     with pytest.raises(NotImplementedError,
-                       match="'moe'.*ROADMAP Queue 1 item 13"):
-        Model(reduced(get_arch("granite-moe-1b-a400m")), device="meta")
+                       match="'ssm'.*ROADMAP Queue 1 item 13c"):
+        Model(reduced(get_arch("jamba-1.5-large-398b")), device="meta")
+    with pytest.raises(NotImplementedError,
+                       match="'enc_attn'.*ROADMAP Queue 1 item 13d"):
+        Model(reduced(get_arch("whisper-small")), device="meta")
+    Model(reduced(get_arch("granite-moe-1b-a400m")), device="meta")
     model = Model(reduced(get_arch(NAME)), device="meta")
-    with pytest.raises(NotImplementedError, match="decode cache"):
-        model({"tokens": torch.zeros(1, 4, dtype=torch.int64)}, cache={})
-    with pytest.raises(NotImplementedError, match="init_cache"):
-        model.init_cache(1, 8)
+    cache = model.init_cache(1, 8)
+    assert set(cache["dec0"]) == {"p0_rwkv_tmix", "p1_rwkv_cmix"}
+    _, new = model({"tokens": torch.zeros(1, 4, dtype=torch.int64,
+                                          device="meta")},
+                   cache=cache, cache_pos=0)
+    assert set(new["dec0"]) == set(cache["dec0"])
 
 
 def test_default_device_is_the_card_and_never_the_cpu(monkeypatch):
