@@ -89,8 +89,9 @@ phase's failure is caught while the run goes on:
               decode_32k, V5E_POD, optimiser="rule_based",
               objective="weighted_throughput", engine="torch")``: the 15
               splits of the 16-row data axis x 2 nets, 30 lanes at full
-              width and depth in one rule-based fleet call; split (12, 4),
-              134,803 points and a history of 5 as the numpy engine gives
+              width cut to 8 layers each (to keep the run under its 600 s
+              aim) in one rule-based fleet call; split (10, 6), 56,079
+              points and a history of 6 as the numpy engine gives
               them, and split, designs, objectives, points and history
               equal to the numpy engine's run (in a worker process beside
               phases 10 and 11); each plan's objective its lane's; segred
@@ -168,11 +169,31 @@ phase's failure is caught while the run goes on:
               of the cache-less float32 forward, the same token rule; (d)
               granite's drops at decode (T = 8, cap 2) equal to a host
               recount from the routed expert ids
+  13. train  training through autograd on the card (``attn_impl=
+              "chunked"``, the plain WKV recurrence: the hand-written
+              kernels have no backward, and none launches): (a)
+              tinyllama-1.1b, rwkv6-1.6b and granite-moe-1b-a400m at full
+              width, the first 2 layers, float32 recipe weights, B=2,
+              T=128, 3 steps of ``launch.steps.make_train_step`` at lr 1e-3
+              on ``DataPipeline`` batches, each loss held to the JAX record
+              ``TRAIN_RECORD`` (``tools/train_records.py``; step 1 within
+              1e-5 relative, steps 2-3 within 1e-4), and for granite the
+              top-k routing of step 3's batch against the record's (the
+              count of assignments that differ); (b) tinyllama-1.1b at full
+              width and depth through ``launch.train.train``, bf16 weights
+              drawn on the card, B=8, T=512, lr 1e-3, 8 steps: finite losses,
+              the mean of the last 3 below the first 3, the median step
+              after the first, tokens/s, peak memory above the phase's
+              start, segred's launches (the plan); (c) restart equivalence
+              at full width cut to 2 layers: 6 steps with a checkpoint every
+              3 against 3 steps resumed to 6, final losses at rtol 1e-4,
+              atol 1e-5, one checkpoint's bytes and its save and restore
+              seconds, in a temporary directory that is removed
 
-  13. profile (only with ``--profile``) the first mapping request, each
+  14. profile (only with ``--profile``) the first mapping request, each
               [search] request (SA: spmd/latency), [fleet] (b) and (c),
               one forward of each LM, one 16-token ``generate`` of each
-              [serve] arch
+              [serve] arch, one step of [train] (b)
               once more under ``torch.profiler``: device busy time, the idle
               share, the kernel's share and the kernels that take the most
               device time, beside the wall time; and
@@ -1685,14 +1706,18 @@ def phase_fleet(smi_line, references):
 
 #: [comap]: two models served side by side on one pod, co-mapped by the
 #: rule-based optimiser over the full menu of splits of the 16-row data
-#: axis (15 splits x 2 nets = 30 lanes, at full width and depth, on
-#: sub-meshes of 1 to 15 rows); the numpy engine's result for it (the
-#: port's numpy engine run on a CPU, which is the JAX package's numpy
-#: engine copied): split, points and the length of the history
+#: axis (15 splits x 2 nets = 30 lanes, at full width cut to ``layers``
+#: layers each, on sub-meshes of 1 to 15 rows: the cut keeps the whole run
+#: under its 600 s aim; at full depth, 22 and 16 layers, the split is
+#: (12, 4), 134,803 points, a history of 5, 89 s); the numpy engine's
+#: result for it (the port's numpy engine run on a CPU, which is the JAX
+#: package's numpy engine copied): split, points and the length of the
+#: history
 COMAP = {"archs": ("tinyllama-1.1b", "llama3.2-1b"), "shape": "decode_32k",
          "backend": "spmd", "exec_model": "streaming",
          "optimiser": "rule_based", "objective": "weighted_throughput",
-         "lanes": 30, "split": (12, 4), "points": 134803, "history": 5}
+         "layers": 8, "lanes": 30, "split": (10, 6), "points": 56079,
+         "history": 6}
 
 #: [service]: phase 4's two requests from ``threads`` threads of
 #: ``submissions`` seeded submissions each; the late joiner enters the
@@ -1709,7 +1734,7 @@ SERVICE = {"threads": 8, "submissions": 3,
 def _comap_kwargs():
     from repro_torch.configs import SHAPES_BY_NAME
     from repro_torch.core.platform import V5E_POD
-    return dict(archs=list(COMAP["archs"]),
+    return dict(archs=[_fleet_arch(COMAP, n) for n in COMAP["archs"]],
                 shape=SHAPES_BY_NAME[COMAP["shape"]], platform=V5E_POD,
                 backend=COMAP["backend"], exec_model=COMAP["exec_model"],
                 optimiser=COMAP["optimiser"], objective=COMAP["objective"])
@@ -1766,7 +1791,8 @@ def phase_comap(smi_line, references):
                                                 engine="torch"))
     got = _comap_fields(plan)
     r = plan.result
-    tag = (f"{' + '.join(COMAP['archs'])} at {COMAP['shape']} on V5E_POD, "
+    tag = (f"{' + '.join(COMAP['archs'])} (full width, {COMAP['layers']} "
+           f"layers each) at {COMAP['shape']} on V5E_POD, "
            f"{COMAP['exec_model']}/{COMAP['objective']}")
     if not plan.feasible or len(plan.plans) != len(COMAP["archs"]):
         fail(f"[comap] {tag}: infeasible or {len(plan.plans)} plans")
@@ -2183,7 +2209,7 @@ def _devices_comap(smi_line):
     D = DEVICES["comap"]["devices"]
     kw = dict(_comap_kwargs(), engine="torch",
               splits=DEVICES["comap"]["splits"])
-    kw["archs"] = [_fleet_arch(DEVICES["comap"], n) for n in kw["archs"]]
+    kw["archs"] = [_fleet_arch(DEVICES["comap"], n) for n in COMAP["archs"]]
     runs = {}
     for devices in (None, D):
         with _CountSteps() as steps:
@@ -2916,6 +2942,419 @@ def phase_serve(smi_line):
     return {"record": record, "runs": runs}
 
 
+#: [train] (a): the JAX package's train steps on the CPU
+#: (``JAX_PLATFORMS=cpu PYTHONPATH=src python tools/train_records.py``):
+#: the loss of each step and, for the MoE arch, step 3's routing (each
+#: (layer, token)'s top-k experts as a uint32 bit mask, base64)
+TRAIN_RECORD = {
+    "layers": 2, "batch": 2, "seq": 128, "steps": 3,
+    "seed": 0, "lr": 0.001,
+    "archs": {
+        "tinyllama-1.1b": {
+            "losses": [
+                10.703878402709961,
+                10.336655616760254,
+                19.63674545288086],
+        },
+        "rwkv6-1.6b": {
+            "losses": [
+                11.571253776550293,
+                11.569536209106445,
+                11.449729919433594],
+        },
+        "granite-moe-1b-a400m": {
+            "losses": [
+                11.12417984008789,
+                11.074075698852539,
+                10.998664855957031],
+            "routing": (
+                "AQRUxAEBFpQBABYXoQAGhYcAEpAKUBCGBgUQpEAwCJUOyQAEBwCQhQeIQAUF"
+                "gWQER4DABAsgIIUJpQCECaAghQygIgUHoCIEAqEZASsAChQPADIEDkAiBQ8g"
+                "KgAIIGQVDkEChA2gAgULYEIEDUEiBAuA4AQNYKAED6AgAQ3AIAUPgCCECwAq"
+                "FAJgOIEPACQUDyAiBA5AMgQPAAiUDSBgFA+ACIQPACoBD0ACBgWhoAQLAOCE"
+                "DwEghA+gAIENgGAFBcEiBA1gQAYLICiBDwCgFA8gIgQNIDIEDyA4AA8AIhQP"
+                "ACIUDyAqAA8AIBYNQSgECwDgFA8AoIQPoAAFD4AgFA8AoBQPACgUB2AoBA9A"
+                "IBQPAKIED0AiBA8AKBQNAGgUD0AoBA8gIgELIKAUBYCiFA8AYBQPAKCED6Ag"
+                "EA2gIBQPgKAED0AgFAFgKBUPAGAUDwCiBA1AIhQLICIUDwAiFA9AIBQPICIQ"
+                "D0AgFA9AIBQLAOAUDcAwBA+AABUNgGAUDwCgFA0AYhQDYCgFCyAiFA8AogQP"
+                "ADIEDwAiFA0AcBQPQGAEDyAiBA9AIBQFgKIUDwCgFA9AIBQPgAAVDaAgFA8A"
+                "oBQPACIUB0AgFQ8AIJQPACIUD0AwBA8gIBQNAPAED0AgFA8gIgQPQCAUDaCg"
+                "BA8A4AQPAKAUD4AgFA2gIBS4IAkEKQCoBgkEgkUZAIVEOSEQQBkHEgA5IAFE"
+                "SSDCQA8AQhQtIEYADyBCBCtAAJQLQIBULQDCBBlAREQLIGAUGUCBRAlAwUQL"
+                "AMIUFUDARC0AwUAJQJJEOSBARAlAA0UZIEDEJaAGICVgQQQR4EBEC0AQNAVA"
+                "wkQZAEFFASBxRBlAkEQJAEcUCwDCFBVAQkQLAEFFCUDSBDkAQUQBQENFESDA"
+                "xCEgFyAxYEAFE+AARBtAECQRQMJEGQBSBRMgUQQRQLBEGQBRRAuAwBQNIEMQ"
+                "CQDRRBkA0gQRYEFEFQBTBBEgwMQZAEYUIWDAhAVAxEQbQIAkNQDARBlAQQUT"
+                "IFBEEUDgRA0gQRQPAMAUFUDARCkgYBQJgNAUEWBBRAkAxhQBIOBFCQDGFCGg"
+                "wAUFYEBUC0CANBVAwEQZAMEFAyDgRCkAxBQLAMBUDwDAFBVAwEQNAMFECQDS"
+                "FCGgQUQBQMFFEWDARBOgwAQB4MAFBUDAVBsAgDQVwMAEGQDBBQMg4EQYQMBU"
+                "CQDQVAsAwBUFQMBFDQDBRAHAwFQZQMBEESCgJQHgwEQhgMQkIcDABQWAwFQN"
+                "QJAkFcDABBEA0QUDIFBFGEDgRAkA0hQLAMAVBUDARQ0AwUQZANAUEWBBRAFA"
+                "wUURIMBFIQDBJRHAwAUFYMBEFcDABBXAwAQBYMBFByDAhIBJRCQAQRwmEAEc"
+                "RgAJXCQQCRRkAEFYpABBWGQgAUhmOAEIJiABmCY0ARgkIAWIJiQFiCQkRZAE"
+                "JAWIBiRFgAUgAYDHAAWIhzQBgAcwAYgHIBGYBTABAJcwEYAHNQEABzERgAU0"
+                "AQAXNBEABzARiAUwEYgFNBGABTUBgAU0AYAHNBGABTQRgAU0AZAFNAGQBTQB"
+                "kAUxARAVNAGQBTUBgAUwEZAFMBGAFTQBkAU1AYAFNBGABTQRgAU0EYAFNQGA"
+                "BTABiBU0AYAVNAGgBTQBgAc0AaAFMAGAFzABsAU0AaAFNQGABTQBgBU0AZAF"
+                "NAGAFTQRgAU0AYAVNAGAFTQBgBU0AZAFNIGABTQBkAU0A4AFNAGgBTQBgBUw"
+                "AbAFNQGABTgRgAU0AYAVNAGgBTQBoAU0EYAFNBGABTQBiAU0EYAFMBGgBTQD"
+                "gAU0A4AFNBGABTQBoAU0AYgFNAGgBTQDgAU0EYAFNAGgBTQRgAU0A4AFNAGg"
+                "BTQBoAU0AaAFNBGABTQBoAU0A4AFNAGgBTQBkAU0A6AENAGgBTQBoAU0AaAF"
+                "NBGABTQBoAU0AaAFNAGgBTQBoAU0AaAFNAGgBTQBoAU0AaAFNAGgBTQBoAU0"
+                "EYAFNAGgBTQBgBU0AaAFNBGABTQRgAU0AaAFNAGgBTQBoAU0AaAFNAGgBTQB"
+                "oAU0EYAFAw4IBTUECCE1BYAEJQ0ABTUFgAQ1BYAEJQ2ABCwFiASmBYAEvAGA"
+                "BKQJwASkBYAkNAmAJDQJgCQkDYAkJgWAJCwFgCQ0EYAktAGAJCQZgCQ0BYAk"
+                "NAmAJCQNgCSkBYAkpAmAJCwJgCSkCYAkJBmAJCQNgCSkCYAkpA0AJKQNACSk"
+                "DQAkJA2AJKQJgCQkDYAkJA2AJCQNgCQkDYAkpAWAJCQNgCSkCYAkpAmAJKQJ"
+                "gCQ0CYAkpA0AJKQNACSkDQAktAUAJKQNACSkCYAkpA0AJCQNgCQkDYAkJA2A"
+                "JKQNACQkDYAkJA2AJCQJwCQkDYAkpAmAJKQNACSkDQAktAkAJLQFACQ0DQAk"
+                "pAmAJCQNgCQkHQAkJA2AJCQNgCQkDYAkJA2AJCQNgCQkGYAkJA2AJKQJgCQk"
+                "DYAkJA2AJKQNACQkGYAkpA0AJKQJgCSkCYAkpA0AJCQNgCQkHQAkJB0AJCQZ"
+                "gCSkGQAkJBmAJKQJgCSkCYAkpA0AJCQNgCSkDQAktAUAJKQNACSkDQAkpAmA"
+                "JKQNACQkHQAkJB0AJKQNACQkGYAkNBkAJCQZgCQkDYAkJBmAJCQdACQkDYAk"
+                "NA0AJDQNACSkGQAktAkAJCQNgCQkDYAkJA2AJDQNACQkHQAkJA2AJCQdACQk"
+                "DYAkpA0AJCQNgCQkHQAkJA2AJDQNACQ="),
+        },
+    },
+}
+
+#: [train] (a): step 1's loss within the first bound relative of the JAX
+#: record, steps 2 and 3 within the second (float32 through three AdamW
+#: updates)
+TRAIN_RECORD_TOL = (1e-5, 1e-4)
+#: [train] (b): tinyllama-1.1b at full width and depth through
+#: ``repro_torch.launch.train.train`` on the card, bf16 weights drawn from
+#: ``seed``, no checkpoint directory
+TRAIN_FULL = {"arch": "tinyllama-1.1b", "batch": 8, "seq": 512, "lr": 1e-3,
+              "steps": 8, "seed": 1}
+#: [train] (c): restart equivalence at full width cut to ``layers``: a run
+#: of ``steps`` with a checkpoint every ``interval`` steps against a run of
+#: ``interval`` steps resumed to ``steps``; final losses at JAX's test's
+#: rtol 1e-4, atol 1e-5
+TRAIN_RESTART = {"arch": "tinyllama-1.1b", "layers": 2, "batch": 2,
+                 "seq": 128, "lr": 1e-3, "steps": 6, "interval": 3,
+                 "seed": 1}
+
+
+def _routing_masks(ids):
+    """(T, k) distinct expert ids -> (T,) uint32 masks of each token's
+    experts (``tools/train_records.py``'s encoding)."""
+    import numpy as np
+    ids = np.asarray(ids, np.uint64)
+    return np.bitwise_or.reduce(np.left_shift(np.uint64(1), ids),
+                                axis=-1).astype(np.uint32)
+
+
+def _routing_diff(model, batch, encoded):
+    """(assignments that differ, assignments) between the model's routing
+    of ``batch`` (a scoring forward, every MoE layer in order) and the JAX
+    record's: each token's top-k experts the record has and the model does
+    not."""
+    import base64
+    import numpy as np
+    import torch
+    from repro_torch.models import moe
+    want = np.frombuffer(base64.b64decode(encoded), dtype="<u4")
+    moe.RECORD = []
+    try:
+        with torch.inference_mode():
+            model.loss(batch)
+    finally:
+        records, moe.RECORD = moe.RECORD, None
+    ids = np.concatenate([r["expert_ids"].cpu().numpy() for r in records])
+    got = _routing_masks(ids)
+    if got.shape != want.shape:
+        fail(f"[train] (a): routing of {got.shape[0]} (layer, token) rows, "
+             f"the record has {want.shape[0]}")
+    missing = want & ~got
+    return int(np.unpackbits(missing.view(np.uint8)).sum()), int(ids.size)
+
+
+def _train_record_check(name, rec):
+    """(a) float32 recipe weights, the first layers at full width, STEPS
+    steps of ``make_train_step`` on the pipeline's batches on the card:
+    each loss held to the JAX record; for a MoE arch the routing of the
+    last step's batch beside the record's."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import convert
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import adamw_init
+
+    arch = get_arch(name)
+    want = rec["archs"][name]
+    model = Model(arch, layer_range=(0, rec["layers"]), attn_impl="chunked",
+                  device="meta")
+    shapes = {k: tuple(t.shape) for k, t in model.state_dict().items()}
+    model.load_state_dict(convert.params_from_jax(
+        convert.nest(convert.recipe_params(shapes, rec["seed"])),
+        device="cuda", dtype=torch.float32), strict=True, assign=True)
+    step = make_train_step(model, None, make_host_mesh(), lr=rec["lr"])
+    state = adamw_init(dict(model.named_parameters()))
+    pipe = DataPipeline(arch.vocab_size, rec["seq"], rec["batch"],
+                        seed=rec["seed"])
+    losses, routing = [], None
+    t0 = time.perf_counter()
+    for s in range(rec["steps"]):
+        batch = pipe.next_batch()
+        if s == rec["steps"] - 1 and "routing" in want:
+            routing = _routing_diff(model, batch, want["routing"])
+        state, metrics = step(state, batch)
+        losses.append(float(metrics["loss"]))
+    wall = time.perf_counter() - t0
+    rels = [abs(g - w) / abs(w) for g, w in zip(losses, want["losses"])]
+    limits = [TRAIN_RECORD_TOL[0]] + [TRAIN_RECORD_TOL[1]] * (
+        rec["steps"] - 1)
+    if len(losses) != len(want["losses"]) or \
+            not all(r <= lim for r, lim in zip(rels, limits)):
+        fail(f"[train] (a) {name}: losses {losses} vs JAX record "
+             f"{want['losses']} (rel {rels}, limits {limits})")
+    out = {"arch": name, "losses": losses, "record": want["losses"],
+           "rel_err": rels, "wall_s": wall}
+    text = ""
+    if routing is not None:
+        out["routing_differs"], out["routing_assignments"] = routing
+        text = (f"; step {rec['steps']}'s routing: {routing[0]} of "
+                f"{routing[1]} assignments differ from JAX's")
+    say("train", f"(a) {name} layers 0-{rec['layers']} float32, B="
+                 f"{rec['batch']} T={rec['seq']}, {rec['steps']} steps at lr "
+                 f"{rec['lr']}: losses {losses} vs JAX record "
+                 f"{want['losses']} (rel {', '.join(f'{r:.3g}' for r in rels)}; "
+                 f"limits {limits}){text}; {wall:.2f} s")
+    del model, state
+    return out
+
+
+def _median(xs):
+    xs = sorted(xs)
+    n = len(xs)
+    return xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2])
+
+
+def _train_full(smi_line):
+    """(b) tinyllama-1.1b at full width and depth through ``train`` on the
+    card: finite losses that fall (mean of the last 3 below the first 3),
+    the median step after the first, tokens/s, peak memory above the
+    phase's start, K1 launches (the plan) and none of K2 or K3."""
+    import math
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.accel import segred
+    from repro_torch.kernels import flash_attention, rwkv6_scan
+    from repro_torch.launch.train import train
+
+    cfg = TRAIN_FULL
+    arch = get_arch(cfg["arch"])
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = (segred.LAUNCHES, rwkv6_scan.LAUNCHES, flash_attention.LAUNCHES)
+    lines = []
+    t0 = time.perf_counter()
+    res = train(arch, steps=cfg["steps"], seq_len=cfg["seq"],
+                global_batch=cfg["batch"], lr=cfg["lr"], seed=cfg["seed"],
+                log_every=1, log=lines.append)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = dict(zip(("segred", "wkv6", "flash_attn"), (
+        segred.LAUNCHES - before[0], rwkv6_scan.LAUNCHES - before[1],
+        flash_attention.LAUNCHES - before[2])))
+    losses = res.losses
+    first, last = sum(losses[:3]) / 3, sum(losses[-3:]) / 3
+    if len(losses) != cfg["steps"] or \
+            not all(math.isfinite(x) for x in losses) or not last < first:
+        fail(f"[train] (b) {cfg['arch']}: losses {losses} (finite, and the "
+             f"mean of the last 3 below the first 3's: {last} vs {first})")
+    if launches["wkv6"] or launches["flash_attn"] or not launches["segred"]:
+        fail(f"[train] (b): launches {launches}; the plan launches segred "
+             f"and training takes no flash or WKV kernel (no backward)")
+    step_s = _median(res.step_seconds[1:])
+    tokens = cfg["batch"] * cfg["seq"]
+    out = {"arch": cfg["arch"], "layers": arch.num_layers,
+           "batch": cfg["batch"], "seq": cfg["seq"], "lr": cfg["lr"],
+           "losses": losses, "step_seconds": res.step_seconds,
+           "median_step_ms": step_s * 1e3,
+           "tokens_per_s": tokens / step_s,
+           "loop_tokens_per_s": res.tokens_per_second,
+           "first_step_s": res.step_seconds[0], "train_wall_s": wall,
+           "peak_gib": peak / 2 ** 30, "launches": launches,
+           "device": smi_line}
+    say("train", f"(b) {cfg['arch']} full width and depth ({arch.num_layers} "
+                 f"layers), bf16, B={cfg['batch']} T={cfg['seq']}, lr "
+                 f"{cfg['lr']}, {cfg['steps']} steps through train(): losses "
+                 f"{', '.join(f'{x:.4f}' for x in losses)} (last 3 mean "
+                 f"{last:.4f} < first 3 {first:.4f}); median step "
+                 f"{out['median_step_ms']:.1f} ms after the first "
+                 f"({res.step_seconds[0]:.2f} s), {out['tokens_per_s']:.0f} "
+                 f"tokens/s (the loop's {res.tokens_per_second:.0f}); peak "
+                 f"{out['peak_gib']:.2f} GiB above the phase's start; "
+                 f"segred launches {launches['segred']} (the plan), wkv6 "
+                 f"{launches['wkv6']}, flash_attn {launches['flash_attn']}; "
+                 f"train() wall {wall:.2f} s; {smi_line}")
+    return out
+
+
+def _train_restart(smi_line):
+    """(c) restart equivalence at full width cut to ``layers``: a
+    ``steps`` run with a checkpoint every ``interval`` steps against an
+    ``interval`` run resumed to ``steps`` (final losses at rtol 1e-4, atol
+    1e-5); then one checkpoint of the same tree saved and restored again,
+    timed, and its bytes. The checkpoints go to a temporary directory that
+    is removed."""
+    import dataclasses
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.checkpoint.checkpoint import (latest_step,
+                                                   load_checkpoint,
+                                                   save_checkpoint)
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import (checkpoint_tree, restore_tree,
+                                          train)
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = TRAIN_RESTART
+    arch = dataclasses.replace(get_arch(cfg["arch"]),
+                               num_layers=cfg["layers"])
+    kw = dict(seq_len=cfg["seq"], global_batch=cfg["batch"], lr=cfg["lr"],
+              seed=cfg["seed"], ckpt_interval=cfg["interval"])
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        a, b = os.path.join(d, "a"), os.path.join(d, "b")
+        full = train(arch, steps=cfg["steps"], ckpt_dir=a, log=lambda m: None,
+                     **kw)
+        shutil.rmtree(a)
+        train(arch, steps=cfg["interval"], ckpt_dir=b, log=lambda m: None,
+              **kw)
+        lines = []
+        resumed = train(arch, steps=cfg["steps"], ckpt_dir=b,
+                        log=lines.append, **kw)
+        gap = abs(full.losses[-1] - resumed.losses[-1])
+        if resumed.steps_run != cfg["steps"] - cfg["interval"] or \
+                lines[:1] != [f"[train] resumed from step {cfg['interval']}"] \
+                or not gap <= 1e-5 + 1e-4 * abs(full.losses[-1]):
+            fail(f"[train] (c): resumed {resumed.steps_run} steps ({lines[:1]}"
+                 f"); final loss {resumed.losses[-1]!r} vs the uninterrupted "
+                 f"run's {full.losses[-1]!r} (limit rtol 1e-4, atol 1e-5)")
+        # one checkpoint of the same tree, timed: restore, then save
+        model = Model(arch, attn_impl="chunked", device="cuda")
+        like = checkpoint_tree(model, adamw_init(
+            dict(model.named_parameters())))
+        step = latest_step(b)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, tree, _ = load_checkpoint(b, step, like=like)
+        restore_tree(model, tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del tree
+        t0 = time.perf_counter()
+        path = save_checkpoint(b, step + 1, like, keep=1)
+        save_s = time.perf_counter() - t0
+        nbytes = sum(os.path.getsize(os.path.join(path, f))
+                     for f in os.listdir(path))
+        del model, like
+    out = {"arch": cfg["arch"], "layers": cfg["layers"],
+           "batch": cfg["batch"], "seq": cfg["seq"],
+           "full_losses": full.losses, "resumed_losses": resumed.losses,
+           "bitwise": full.losses[-1] == resumed.losses[-1],
+           "checkpoint_bytes": nbytes, "save_s": save_s,
+           "restore_s": restore_s, "device": smi_line}
+    say("train", f"(c) {cfg['arch']} full width, {cfg['layers']} layers, B="
+                 f"{cfg['batch']} T={cfg['seq']}: {cfg['steps']} steps with a "
+                 f"checkpoint every {cfg['interval']} vs {cfg['interval']} "
+                 f"resumed to {cfg['steps']}: final loss "
+                 f"{resumed.losses[-1]!r} vs {full.losses[-1]!r} (bitwise "
+                 f"{out['bitwise']}); one checkpoint {nbytes} bytes, save "
+                 f"{save_s:.2f} s, restore {restore_s:.2f} s (warm page "
+                 f"cache); the temporary directory removed")
+    return out
+
+
+def phase_train(smi_line):
+    """[train]: (a) the three archs against the JAX record, (b) the full
+    model through ``train``, (c) restart equivalence."""
+    import torch
+    from repro_torch.core.accel import segred
+    from repro_torch.kernels import flash_attention, rwkv6_scan
+    segred.LAUNCHES = flash_attention.LAUNCHES = rwkv6_scan.LAUNCHES = 0
+    record = [_train_record_check(name, TRAIN_RECORD)
+              for name in TRAIN_RECORD["archs"]]
+    torch.cuda.empty_cache()
+    full = _train_full(smi_line)
+    torch.cuda.empty_cache()
+    restart = _train_restart(smi_line)
+    torch.cuda.empty_cache()
+    launches = {"segred": segred.LAUNCHES, "wkv6": rwkv6_scan.LAUNCHES,
+                "flash_attn": flash_attention.LAUNCHES}
+    if launches["wkv6"] or launches["flash_attn"]:
+        fail(f"[train]: launches {launches}; training takes no flash or WKV "
+             f"kernel (they have no backward, nor have their Pallas "
+             f"originals)")
+    say("train", f"launches in [train]: segred {launches['segred']} (the "
+                 f"plans of (b) and (c)), wkv6 {launches['wkv6']}, "
+                 f"flash_attn {launches['flash_attn']}")
+    return {"record": record, "full": full, "restart": restart,
+            "launches": launches}
+
+
+def phase_profile_train():
+    """One step of [train] (b) under torch.profiler: the same model (bf16
+    weights drawn from the seed), one warm-up step, then one step timed
+    and one profiled: device busy time, the idle share against the timed
+    step's wall, and the kernels that take the most device time."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import adamw_init
+    cfg = TRAIN_FULL
+    arch = get_arch(cfg["arch"])
+    dev = torch.device("cuda")
+    model = Model(arch, attn_impl="chunked", device=dev,
+                  generator=torch.Generator(dev).manual_seed(cfg["seed"]))
+    step = make_train_step(model, None, make_host_mesh(), lr=cfg["lr"])
+    state = [adamw_init(dict(model.named_parameters()))]
+    pipe = DataPipeline(arch.vocab_size, cfg["seq"], cfg["batch"],
+                        seed=cfg["seed"])
+
+    def one():
+        state[0], metrics = step(state[0], pipe.next_batch())
+        float(metrics["loss"])
+
+    one()                                                  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    profiled, dev_events, by_name = _profile(one)
+    device_s = sum(tot for tot, _ in by_name.values()) * 1e-6
+    out = {"arch": cfg["arch"], "wall_s": wall, "profiled_wall_s": profiled,
+           "device_s": device_s, "device_events": len(dev_events),
+           "idle_share": (1.0 - device_s / wall) if dev_events else None,
+           "top": _top(by_name, 12)}
+    del model, state
+    torch.cuda.empty_cache()
+    if not dev_events:
+        say("profile", "[train] (b): the profiler traced no device "
+                       "activity: device time not measured")
+        return out
+    say("profile", f"[train] (b) one step: {len(dev_events)} device events, "
+                   f"device busy {device_s:.4f} s of {wall:.4f} s wall (idle "
+                   f"share {out['idle_share']:.4f})")
+    for row in out["top"]:
+        say("profile", f"  {row['device_s']:.5f} s  x{row['count']}  "
+                       f"{row['name']}")
+    return out
+
+
 def _profile(fn):
     """Device events of ``fn()`` under torch.profiler, summed by kernel."""
     import torch
@@ -3245,16 +3684,19 @@ def main() -> None:
         devices, devices_launches = phase_devices(smi_line)
     references.start()
     try:
-        with phase_wall("lm"):
+        # scoring builds no autograd graph
+        with phase_wall("lm"), torch.inference_mode():
             model, batch, lm = phase_lm()
-        with phase_wall("lm-dense"):
+        with phase_wall("lm-dense"), torch.inference_mode():
             dense_model, dense_batch, dense = phase_lm_dense()
         with phase_wall("numpy references (wait after lm-dense)"):
             references.check()
     finally:
         references.stop()
-    with phase_wall("serve"):
+    with phase_wall("serve"), torch.inference_mode():
         served = phase_serve(smi_line)
+    with phase_wall("train"):
+        trained = phase_train(smi_line)
     for row in fleet:
         row.pop("results")
     WALLS["run before --profile"] = time.perf_counter() - t_run
@@ -3264,13 +3706,17 @@ def main() -> None:
         profiled = {"mapping": phase_profile(runs),
                     "search": phase_profile_search(search),
                     "fleet": phase_profile_fleet(fleet),
-                    "segred": phase_profile_segred(yardsticks),
-                    "lm": phase_profile_lm("lm", model, batch, lm,
-                                           "wkv6_chunk_kernel"),
-                    "lm-dense": phase_profile_lm("lm-dense", dense_model,
-                                                 dense_batch, dense,
-                                                 "flash_attn_mma_kernel"),
-                    "serve": phase_profile_serve(served)}
+                    "segred": phase_profile_segred(yardsticks)}
+        with torch.inference_mode():
+            profiled["lm"] = phase_profile_lm("lm", model, batch, lm,
+                                              "wkv6_chunk_kernel")
+            profiled["lm-dense"] = phase_profile_lm(
+                "lm-dense", dense_model, dense_batch, dense,
+                "flash_attn_mma_kernel")
+            profiled["serve"] = phase_profile_serve(served)
+        del model, dense_model
+        torch.cuda.empty_cache()
+        profiled["train"] = phase_profile_train()
 
     main_row = next(r for r in rows if (r["N"], r["n"]) == SEGRED_SHAPES[0]
                     and r["dtype"] == "float32" and r["op"] == "max")
@@ -3285,7 +3731,8 @@ def main() -> None:
         "replaces": "src/repro/core/accel/pallas_segred.py:31",
         "launches": launches + search_launches + fleet_launches
         + comap_launches + service_launches + devices_launches
-        + sum(r["launches"]["segred"] for r in served["runs"]),
+        + sum(r["launches"]["segred"] for r in served["runs"])
+        + trained["launches"]["segred"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3319,7 +3766,7 @@ def main() -> None:
         "main": runs, "search": search, "fleet": fleet, "comap": comap,
         "service": service, "devices": devices, "lm": lm,
         "walls_s": WALLS,
-        "lm_dense": dense, "serve": served,
+        "lm_dense": dense, "serve": served, "train": trained,
         "profile": profiled, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

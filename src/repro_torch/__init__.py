@@ -10,11 +10,12 @@ the partition-time reduction in a hand-written kernel (``csrc/segred.cu``).
     from repro_torch.core.pipeline import optimise_mapping
     plan = optimise_mapping(arch, shape, platform, engine="torch")
 
-The LM stack (``models``) and its serve loop (``launch.serve``: prefill,
-then greedy decode against a cache) run on the card as well.
+The LM stack (``models``), its serve loop (``launch.serve``: prefill, then
+greedy decode against a cache) and its train loop (``launch.train``:
+``data``, ``optim``, ``checkpoint``, ``runtime``) run on the card as well.
 
 Entry points run on ``cuda``; pass ``device="cpu"`` to run the kernels'
 plain PyTorch versions on the CPU instead (the tests do). Importing the
-package turns TF32 matmuls off (``runtime.py``).
+package turns TF32 matmuls off (``runtime``).
 """
 from repro_torch import runtime  # noqa: F401  (sets the float32 matmul policy)

@@ -18,6 +18,11 @@ start on 16-byte boundaries (fresh tensors do). Only a CPU tensor takes
 the plain version, ``flash_attention_plain``, which is the oracle
 ``ref.attention``. ``LAUNCHES`` counts kernel launches, so a run can show
 that the model went through the kernel.
+
+The kernel has no backward, as its Pallas original has none: with grad
+mode on and an input that requires grad, the wrapper raises on either
+device, so that the CPU's plain route never differentiates where the card
+could not. A model that trains takes ``attn_impl="chunked"``.
 """
 from __future__ import annotations
 
@@ -77,6 +82,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     CPU tensors take the plain version; any other device raises."""
     global LAUNCHES
     _check(q, k, v)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward (nor has its Pallas original): "
+            "call it under torch.no_grad() or torch.inference_mode(); a "
+            "model that trains takes attn_impl='chunked'")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal)
     if q.device.type != "cuda":

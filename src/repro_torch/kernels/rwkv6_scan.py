@@ -14,6 +14,11 @@ chunked tensor-core kernel, float32 to the step-by-step recurrence. Only a
 CPU tensor takes the plain version, ``wkv6_plain``, which is the oracle
 ``ref.rwkv6``. ``LAUNCHES`` counts kernel launches, so a run can show that
 the model went through the kernel.
+
+The kernel has no backward, as its Pallas original has none: with grad
+mode on and an input that requires grad, the wrapper raises on either
+device, so that the CPU's plain route never differentiates where the card
+could not. A model that trains takes the oracle (``use_flash=False``).
 """
 from __future__ import annotations
 
@@ -77,6 +82,12 @@ def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     raises."""
     global LAUNCHES
     _check(r, k, v, w, u)
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in (r, k, v, w, u)):
+        raise RuntimeError(
+            "wkv6 has no backward (nor has its Pallas original): call it "
+            "under torch.no_grad() or torch.inference_mode(); a model that "
+            "trains takes the oracle (use_flash=False)")
     if r.device.type == "cpu":
         return wkv6_plain(r, k, v, w, u)
     if r.device.type != "cuda":

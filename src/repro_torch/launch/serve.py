@@ -6,7 +6,8 @@ them), plans the cell (``plan_for_mesh``), draws ``batch`` prompts and
 runs ``generate``: one prefill step that writes the prompts into the cache
 and picks each row's first token, then ``gen_len - 1`` decode steps of one
 token each. Every token is the argmax of its logits (the first on ties).
-Times end in ``torch.cuda.synchronize()`` on the card.
+Times end in ``torch.cuda.synchronize()`` on the card. Both run under
+``torch.inference_mode()``: serving builds no autograd graph.
 
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \\
         --prompt-len 32 --gen-len 32 --batch 4 [--device cpu]
@@ -37,6 +38,7 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@torch.inference_mode()
 def generate(model: Model, prompts: torch.Tensor, gen_len: int, *,
              plan=None, mesh=None, cache_dtype=torch.bfloat16,
              keep_logits: bool = False):
@@ -106,6 +108,7 @@ def generate(model: Model, prompts: torch.Tensor, gen_len: int, *,
     return torch.stack(generated, dim=1), stats
 
 
+@torch.inference_mode()
 def serve(arch: ArchConfig, *, prompt_len: int = 32, gen_len: int = 32,
           batch: int = 4, mesh=None, seed: int = 0, greedy: bool = True,
           log=print, device=None, keep_logits: bool = False):

@@ -8,6 +8,11 @@ keys are the tree's paths joined by ``.``, values keep JAX's dtypes unless
 ``dtype`` is given. Load it with ``Model.load_state_dict(sd, strict=True)``
 (``assign=True`` on a ``meta``-device model keeps the given dtypes).
 
+``opt_state_from_jax(state, device=...)`` does the same for the JAX
+package's ``AdamWState`` (its step and its master, m and v trees as numpy
+arrays), giving the port's ``optim.adamw.AdamWState`` keyed as the
+``state_dict``.
+
 ``recipe_params(shapes, seed)`` draws numpy float32 values for every leaf of
 a parameter tree, one stated recipe per leaf, leaves in sorted
 key order from one ``numpy.random.default_rng(seed)``; ``recipe_batch``
@@ -63,6 +68,18 @@ def params_from_jax(tree: Mapping[str, Any], *, device,
             for k, a in flatten(tree).items()}
 
 
+def opt_state_from_jax(state: Any, *, device):
+    """The port's ``AdamWState`` for a JAX-layout one: any object with the
+    fields ``step``, ``master``, ``m`` and ``v`` (JAX's ``AdamWState`` of
+    numpy arrays), the three trees flattened as ``params_from_jax``
+    flattens parameters, every value kept bit for bit."""
+    from repro_torch.optim.adamw import AdamWState
+    return AdamWState(
+        _tensor(np.asarray(state.step, np.int32)).to(device),
+        *(params_from_jax(getattr(state, f), device=device)
+          for f in ("master", "m", "v")))
+
+
 def _draw(rng: np.random.Generator, name: str,
           shape: Sequence[int]) -> np.ndarray:
     leaf = name.rsplit(".", 1)[-1]
@@ -113,5 +130,5 @@ def recipe_params(shapes: Mapping[str, Sequence[int]],
             for name in sorted(shapes)}
 
 
-__all__ = ["params_from_jax", "recipe_params", "recipe_batch", "flatten",
-           "nest"]
+__all__ = ["params_from_jax", "opt_state_from_jax", "recipe_params",
+           "recipe_batch", "flatten", "nest"]

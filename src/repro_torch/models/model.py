@@ -13,8 +13,16 @@ are verbatim copies.
 across key for key (``models/convert.py``). ``forward(batch)`` and
 ``loss(batch)`` take JAX's batch dict (``tokens``, ``labels``, optional
 ``loss_mask``) and return what JAX's ``forward(params, batch)`` and
-``loss(params, batch)`` return, under ``torch.inference_mode()``: there is
-no backward in the port yet.
+``loss(params, batch)`` return. The parameters are trainable: with grad
+mode on, ``forward`` and ``loss`` build an autograd graph (the train step,
+``launch/steps.py::make_train_step``), and with ``remat`` (JAX's default)
+each layer group runs under ``torch.utils.checkpoint``, as JAX's scan body
+runs under ``jax.checkpoint``: only the group's input is kept, and its
+activations are recomputed in the backward. Scoring and serving run under
+``torch.inference_mode()`` (``launch/serve.py``), which builds nothing. The
+hand-written kernels have no backward (nor have their Pallas originals), so
+their wrappers raise under grad: a model that trains takes
+``attn_impl="chunked"`` and ``use_flash=False``, as JAX's train loop does.
 
 Ported so far: the ``attn`` / ``ffn`` blocks (rotary self-attention and
 the feed-forward, as dense models such as tinyllama-1.1b chain them), the
@@ -46,6 +54,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as A
@@ -157,8 +166,7 @@ def _module(tree: Dict[str, Any]) -> nn.Module:
     """Nested dicts of tensors as nested ``ModuleDict`` / ``ParameterDict``,
     so that ``state_dict()`` keys are the tree's paths joined by ``.``."""
     if all(isinstance(v, torch.Tensor) for v in tree.values()):
-        return nn.ParameterDict(
-            {k: nn.Parameter(v, requires_grad=False) for k, v in tree.items()})
+        return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
     return nn.ModuleDict({k: _module(v) for k, v in tree.items()})
 
 
@@ -173,8 +181,10 @@ class Model(nn.Module):
     arguments, plus where the parameters live and what draws them.
     ``device=None`` is the card (``runtime.resolve_device``: no card, no
     CPU fallback); ``device="meta"`` allocates nothing, for shapes, or for
-    ``load_state_dict(..., assign=True)``. ``remat`` and ``unroll`` are kept
-    for the signature and do nothing: there is no backward and no scan."""
+    ``load_state_dict(..., assign=True)``. ``remat`` recomputes each layer
+    group's activations in the backward (``torch.utils.checkpoint``);
+    ``unroll`` is kept for the signature and does nothing: a Python loop
+    walks the layers where JAX scans them."""
 
     def __init__(self, arch: ArchConfig,
                  layer_range: Optional[Tuple[int, int]] = None,
@@ -244,7 +254,6 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # forward
     # ------------------------------------------------------------------
-    @torch.inference_mode()
     def forward(self, batch: Dict[str, torch.Tensor],
                 cache: Optional[Dict[str, Any]] = None,
                 cache_pos: Optional[torch.Tensor] = None,
@@ -307,58 +316,85 @@ class Model(nn.Module):
                      get_sf, seg_cache=None, cache_pos=None):
         """Runs the segment's layers; returns (x, new segment cache), the
         cache None when ``seg_cache`` is None. Only blocks that have an
-        entry in ``seg_cache`` emit one (ffn and moe are stateless)."""
-        arch = self.arch
+        entry in ``seg_cache`` emit one (ffn and moe are stateless). With
+        ``remat``, grad mode on and no cache, each layer group runs under
+        ``torch.utils.checkpoint`` (JAX: ``jax.checkpoint`` of the scan
+        body). Without, the blocks run here one after another, so that a
+        block's input is freed as soon as the next block has its output."""
+        remat = self.remat and seg_cache is None and torch.is_grad_enabled()
         new_leaves: Dict[str, Dict[str, List[torch.Tensor]]] = {}
         for i in range(seg.count):
+            p = {pk: {name: t[i] for name, t in leaves.items()}
+                 for pk, leaves in seg_params.items()}
+            if remat:
+                x = checkpoint(self._layer_group, x, seg, p, positions,
+                               mrope, get_sf, use_reentrant=False)
+                continue
+            c = None
+            if seg_cache is not None:
+                c = {pk: {name: t[i] for name, t in leaves.items()}
+                     for pk, leaves in seg_cache.items()}
             for j, kind in enumerate(seg.pattern):
-                pk = f"p{j}_{kind}"
-                p = {name: t[i] for name, t in seg_params[pk].items()}
-                c = None
-                if seg_cache is not None and pk in seg_cache:
-                    c = {name: t[i] for name, t in seg_cache[pk].items()}
-                sfk = get_sf(kind)
-                if kind == "attn":
-                    x, nc = A.attend(
-                        x, p, num_heads=arch.num_heads,
-                        num_kv_heads=arch.num_kv_heads,
-                        head_dim=arch.head_dim, norm=arch.norm, causal=True,
-                        positions=positions, rope_theta=arch.rope_theta,
-                        mrope_positions=mrope, cache=c, cache_pos=cache_pos,
-                        attn_impl=self.attn_impl, shard_fn=sfk)
-                elif kind == "ffn":
-                    x = L.apply_ffn(x, p, arch.act, arch.norm, shard_fn=sfk)
-                    nc = None
-                elif kind == "moe":
-                    x = M.apply_moe(x, p, top_k=arch.experts_per_token,
-                                    act=arch.act, norm=arch.norm,
-                                    shard_fn=sfk)
-                    nc = None
-                elif kind == "rwkv_tmix":
-                    # the sum goes on in float32 to the channel mix
-                    x, nc = R.apply_rwkv_tmix(
-                        x, p, head_size=arch.rwkv_head_size, norm=arch.norm,
-                        state=c, use_kernel=self.use_flash, shard_fn=sfk)
-                elif kind == "rwkv_cmix":
-                    x, nc = R.apply_rwkv_cmix(x, p, norm=arch.norm, state=c,
-                                              shard_fn=sfk)
-                else:
-                    raise ValueError(kind)
-                if c is not None:
-                    nc = nc if nc is not None else c
-                    for name, t in nc.items():
-                        new_leaves.setdefault(pk, {}).setdefault(
-                            name, []).append(t)
+                x = self._block(j, kind, x, p, c, positions, mrope, get_sf,
+                                cache_pos, new_leaves)
         if seg_cache is None:
             return x, None
         return x, {pk: {name: _store(seg_cache[pk][name], layers)
                         for name, layers in leaves.items()}
                    for pk, leaves in new_leaves.items()}
 
+    def _layer_group(self, x, seg: Segment, seg_p, positions, mrope, get_sf):
+        """One layer group without a cache (the segment's pattern once,
+        JAX's scan body): what ``remat`` recomputes in the backward."""
+        for j, kind in enumerate(seg.pattern):
+            x = self._block(j, kind, x, seg_p, None, positions, mrope,
+                            get_sf, None, {})
+        return x
+
+    def _block(self, j, kind, x, seg_p, seg_c, positions, mrope, get_sf,
+               cache_pos, new_leaves):
+        """Block ``j`` of a layer group on ``x``; ``seg_p`` / ``seg_c`` are
+        the group's slices of the segment's parameters and cache. A block
+        with a cache entry appends its new cache leaves to
+        ``new_leaves[block][leaf]``. Returns the block's output."""
+        arch = self.arch
+        pk = f"p{j}_{kind}"
+        p = seg_p[pk]
+        c = seg_c.get(pk) if seg_c is not None else None
+        sfk = get_sf(kind)
+        if kind == "attn":
+            x, nc = A.attend(
+                x, p, num_heads=arch.num_heads,
+                num_kv_heads=arch.num_kv_heads,
+                head_dim=arch.head_dim, norm=arch.norm, causal=True,
+                positions=positions, rope_theta=arch.rope_theta,
+                mrope_positions=mrope, cache=c, cache_pos=cache_pos,
+                attn_impl=self.attn_impl, shard_fn=sfk)
+        elif kind == "ffn":
+            x = L.apply_ffn(x, p, arch.act, arch.norm, shard_fn=sfk)
+            nc = None
+        elif kind == "moe":
+            x = M.apply_moe(x, p, top_k=arch.experts_per_token,
+                            act=arch.act, norm=arch.norm, shard_fn=sfk)
+            nc = None
+        elif kind == "rwkv_tmix":
+            # the sum goes on in float32 to the channel mix
+            x, nc = R.apply_rwkv_tmix(
+                x, p, head_size=arch.rwkv_head_size, norm=arch.norm,
+                state=c, use_kernel=self.use_flash, shard_fn=sfk)
+        elif kind == "rwkv_cmix":
+            x, nc = R.apply_rwkv_cmix(x, p, norm=arch.norm, state=c,
+                                      shard_fn=sfk)
+        else:
+            raise ValueError(kind)
+        if c is not None:
+            for name, t in (nc if nc is not None else c).items():
+                new_leaves.setdefault(pk, {}).setdefault(name, []).append(t)
+        return x
+
     # ------------------------------------------------------------------
     # losses
     # ------------------------------------------------------------------
-    @torch.inference_mode()
     def loss(self, batch, shard_fns=None) -> torch.Tensor:
         logits, _ = self.forward(batch, shard_fns=shard_fns)
         labels = batch["labels"].long()

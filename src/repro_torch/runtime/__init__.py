@@ -15,6 +15,10 @@ Floats are float32 by default (the JAX engine's dtype without x64) and
 float64 on request. Importing this module pins float32 matmuls to full
 precision: ``_eval_core``'s one-hot segment sums are einsums, and TF32 keeps
 about three decimal digits, which would break the float32 contract.
+
+The package also holds verbatim copies of the JAX package's host runtime:
+``fault_tolerance`` (heartbeats, the restart / elastic-shrink / abort
+policy) and ``stragglers`` (per-host step times against a deadline).
 """
 from __future__ import annotations
 
@@ -78,5 +82,13 @@ def resolve_dtype(dtype: Optional[torch.dtype] = None) -> torch.dtype:
     return dtype
 
 
+from repro_torch.runtime.fault_tolerance import (  # noqa: E402
+    FaultToleranceConfig,
+    HeartbeatMonitor,
+    ResilientRunner,
+)
+from repro_torch.runtime.stragglers import StragglerTracker  # noqa: E402
+
 __all__ = ["default_device", "resolve_device", "device_mesh",
-           "resolve_dtype", "FLOAT_DTYPES"]
+           "resolve_dtype", "FLOAT_DTYPES", "FaultToleranceConfig",
+           "HeartbeatMonitor", "ResilientRunner", "StragglerTracker"]

@@ -107,7 +107,9 @@ def reduced_jax_tree(name):
 def port_model(name, params, dtype=None, **kw):
     """The port's reduced ``name`` on the CPU holding the JAX-layout
     ``params`` (``assign=True`` keeps the dtypes of the given tensors, or
-    ``dtype`` when one is given)."""
+    ``dtype`` when one is given). Its parameters are frozen
+    (``requires_grad_(False)``): a scoring test builds no autograd graph,
+    and the kernel wrappers, which raise under grad, take the tensors."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import convert
     from repro_torch.models.model import Model
@@ -115,7 +117,7 @@ def port_model(name, params, dtype=None, **kw):
     model.load_state_dict(convert.params_from_jax(params, device="cpu",
                                                   dtype=dtype),
                           strict=True, assign=True)
-    return model
+    return model.requires_grad_(False)
 
 
 def jax_run(name, params, batch, dtype=None, use_flash=True, **kw):
@@ -140,7 +142,8 @@ def layer_range_pair(name, params, cut):
     """The port's reduced ``name`` split at layer ``cut`` of its single
     decoder segment ``dec0``: ``Model(layer_range=(0, cut),
     include_head=False)`` and ``Model(layer_range=(cut, L),
-    include_embed=False)``, holding the JAX-layout ``params``' slices."""
+    include_embed=False)``, holding the JAX-layout ``params``' slices,
+    frozen as ``port_model``'s."""
     from repro_torch.configs import get_arch, reduced
     from repro_torch.models import convert
     from repro_torch.models.model import Model
@@ -158,17 +161,19 @@ def layer_range_pair(name, params, cut):
                         **{k: v for k, v in sd.items()
                            if k.startswith(("final_norm.", "head."))}},
                        strict=True, assign=True)
-    return m1, m2
+    return m1.requires_grad_(False), m2.requires_grad_(False)
 
 
 def port_run(model, batch):
     """The port's logits (a tensor) and loss (a float) on the numpy
-    ``batch``; the forward returns no cache."""
+    ``batch``, scored under ``torch.inference_mode()`` as ``chip_smoke.py``
+    scores; the forward returns no cache."""
     import torch
     tb = {k: torch.from_numpy(v) for k, v in batch.items()}
-    logits, cache = model(tb)
-    assert cache is None
-    return logits, float(model.loss(tb))
+    with torch.inference_mode():
+        logits, cache = model(tb)
+        assert cache is None
+        return logits, float(model.loss(tb))
 
 
 def lm_sample_points(batch, seq, vocab):

@@ -178,7 +178,10 @@ def test_init_params_draws_from_the_generator():
     assert _port_leaves(sa) == _jax_leaves(r_reduced(r_arch(NAME)))
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["dec0.p0_attn.wq"], sc["dec0.p0_attn.wq"])
-    logits, _ = a({"tokens": torch.from_numpy(_batch(8)["tokens"])})
+    # the parameters train; scoring through the kernel runs without grad
+    assert all(p.requires_grad for p in a.parameters())
+    with torch.inference_mode():
+        logits, _ = a({"tokens": torch.from_numpy(_batch(8)["tokens"])})
     assert logits.shape == (2, 8, arch.vocab_size)
     assert torch.isfinite(logits.float()).all()
 

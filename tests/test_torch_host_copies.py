@@ -44,6 +44,7 @@ VERBATIM = (
     "core/backends.py", "core/perfmodel.py", "core/constraints.py",
     "core/objectives.py", "core/batched_eval.py", "obs/trace.py",
     "obs/metrics.py", "core/optimizers/common.py",
+    "runtime/fault_tolerance.py", "runtime/stragglers.py",
 )
 
 #: copies that change one named part; the text from the marker on (or up
@@ -168,6 +169,9 @@ HELPER_VERBATIM = {
                             "bucket_indices", "_BFMember", "_bucket_tables"),
     "core/accel/lowering.py": ("FINGERPRINT_ARRAYS",
                                "FINGERPRINT_INDEX_SETS"),
+    "checkpoint/checkpoint.py": ("MANIFEST", "_flatten", "latest_step",
+                                 "_gc", "CheckpointManager"),
+    "checkpoint/elastic.py": ("shrink_batch_for_mesh",),
 }
 
 
@@ -177,6 +181,19 @@ HELPER_VERBATIM = {
 def test_helper_copy_matches_original(rel, name):
     assert _top_level_source(SRC / "repro_torch" / rel, name) == \
         _top_level_source(SRC / "repro" / rel, name)
+
+
+#: the data pipeline's host part: the numpy stream and its positioning,
+#: statement by statement (``batch_at`` hands the rows to torch instead)
+PIPELINE_VERBATIM = ("DataPipeline.__post_init__", "DataPipeline._sequence",
+                     "DataPipeline.skip_to", "DataPipeline.step")
+
+
+def test_pipeline_numpy_part_matches_original():
+    rel = "data/pipeline.py"
+    orig, port = (dict(_statements(t)) for t in _texts(rel))
+    for name in PIPELINE_VERBATIM:
+        assert port[name] == orig[name], name
 
 
 def _split_engine_pin(text):

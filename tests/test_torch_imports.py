@@ -59,7 +59,13 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "repro_torch.models.moe", "repro_torch.launch",
                 "repro_torch.launch.mesh", "repro_torch.launch.shapes",
                 "repro_torch.launch.train", "repro_torch.launch.steps",
-                "repro_torch.launch.serve"}
+                "repro_torch.launch.serve",
+                "repro_torch.runtime.fault_tolerance",
+                "repro_torch.runtime.stragglers", "repro_torch.data",
+                "repro_torch.data.pipeline", "repro_torch.optim",
+                "repro_torch.optim.adamw", "repro_torch.optim.compression",
+                "repro_torch.checkpoint", "repro_torch.checkpoint.checkpoint",
+                "repro_torch.checkpoint.elastic"}
     assert expected <= set(out["modules"])
     assert out["bad"] == []
 

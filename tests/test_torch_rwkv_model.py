@@ -162,8 +162,9 @@ def test_init_params_draws_from_the_generator():
     assert all(torch.equal(sa[k], sb[k]) for k in sa)
     assert not torch.equal(sa["dec0.p0_rwkv_tmix.wr"],
                            sc["dec0.p0_rwkv_tmix.wr"])
-    assert not any(p.requires_grad for p in a.parameters())
-    logits, _ = a({"tokens": torch.from_numpy(_batch(8)["tokens"])})
+    assert all(p.requires_grad for p in a.parameters())
+    with torch.inference_mode():
+        logits, _ = a({"tokens": torch.from_numpy(_batch(8)["tokens"])})
     assert logits.shape == (2, 8, arch.vocab_size)
     assert torch.isfinite(logits.float()).all()
 
@@ -213,8 +214,9 @@ def test_recipe_record_reproduces_on_the_port():
         dtype=torch.float32), strict=True, assign=True)
     data = convert.recipe_batch(arch.vocab_size, 2, 16, 0)
     batch = {k: torch.from_numpy(v) for k, v in data.items()}
-    logits, _ = model(batch)
-    loss = float(model.loss(batch))
+    with torch.inference_mode():           # scoring, as chip_smoke.py's
+        logits, _ = model(batch)
+        loss = float(model.loss(batch))
     assert abs(loss - rec["loss"]) <= 1e-4 * abs(rec["loss"])
     points = lm_sample_points(2, 16, arch.vocab_size)
     assert [p[:3] for p in rec["logits"]] == [list(p) for p in points]
