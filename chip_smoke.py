@@ -37,7 +37,10 @@ phase's failure is caught while the run goes on:
               the reduced model's head size 32, two causal multi-tile cases
               (dh 128 and 32) and the dense LM phase's shape (B=2, S=4096,
               32 heads over 4 KV heads of 64, causal) in bfloat16 and
-              float32, each timed beside scaled_dot_product_attention
+              float32, and in bfloat16 the shapes of phases 14 and 15's
+              models (``FLASH_MODEL_SHAPES``: jamba's attention, whisper's
+              encoder, cross- and self-attention), each timed beside
+              scaled_dot_product_attention
   4. main     the rule-based optimiser with the torch engine on
               tinyllama-1.1b / train_4k / V5E_POD, for two requests, timed
               at the optimiser's entry point; each must equal the port's
@@ -189,8 +192,34 @@ phase's failure is caught while the run goes on:
               3 against 3 steps resumed to 6, final losses at rtol 1e-4,
               atol 1e-5, one checkpoint's bytes and its save and restore
               seconds, in a temporary directory that is removed
+  14. ssm    jamba-1.5-large-398b at full width: (a) layer range (0, 1),
+              float32 recipe weights (drawn on a host thread beside phases
+              10-13), B=1, T=128: loss 1e-4 and sampled logits 1e-3 of the
+              JAX record ``SSM_RECORD``, then 8 greedy tokens through
+              ``generate`` (float32 cache) equal to JAX's cached forward,
+              logits within 1e-3; (b) layers 6-8 (ssm + ffn, attn + a
+              16-expert moe; 23.8 GB of bf16 weights drawn on the card),
+              B=1, T=4096 with flash attention, held as phase 11's (b),
+              tokens that MoE routed differently in two forwards left out
+              (at most a quarter); the scan of one layer at T=512 in
+              float32 within 1e-5 of a float64 recurrence, and timed at
+              the forward's shape; ``generate`` at B=8, prompt 512, 64
+              tokens, held as phase 12's (b) with attention and the scan
+              in float64 as the yardstick and MoE routing flips counted
+              and left out
+  15. encdec  whisper-small at full width and depth: (a) bf16 recipe
+              weights and frames, a 16-token prefill and 8 teacher-forced
+              decode steps, each sampled logit within max(6e-2 + 6e-2
+              |want|, the reference's spread) of JAX's cache-less forward
+              (``ENCDEC_RECORD``; JAX's own decode ignores the cached
+              cross K/V); (b) ``serve`` at B=8, 1500 frames a row, prompt
+              64, 64 tokens (prefill ms with the encoder, decode tokens/s,
+              peak; the decode held as phase 12's (b)), then the same
+              weights scored with flash attention at B=8, T=448: 36
+              launches a forward (12 encoder, 12 causal, 12 cross), held
+              as phase 11's (b)
 
-  14. profile (only with ``--profile``) the first mapping request, each
+  16. profile (only with ``--profile``) the first mapping request, each
               [search] request (SA: spmd/latency), [fleet] (b) and (c),
               one forward of each LM, one 16-token ``generate`` of each
               [serve] arch, one step of [train] (b)
@@ -354,6 +383,15 @@ FLASH_LM_SHAPE = (2, 4096, 4096, 32, 4, 64)
 #: causal multi-tile cases the small grid cannot reach: many 64-key tiles
 #: at dh = 128 (group 8) and at dh = 32 (no grouping)
 FLASH_DEEP_SHAPES = ((1, 2048, 2048, 16, 2, 128), (1, 1024, 1024, 8, 8, 32))
+#: the shapes [ssm] and [encdec] give the kernel in their models (bf16):
+#: jamba's attention layer (64 query heads over 8 KV heads of 128,
+#: causal), whisper's encoder (1500 frames, not causal), its decoder's
+#: cross-attention (448 queries over 1500 frames, not causal, a ragged
+#: 28-key tail) and its causal self-attention; with the causal flag
+FLASH_MODEL_SHAPES = (((1, 4096, 4096, 64, 8, 128), True),
+                      ((8, 1500, 1500, 12, 12, 64), False),
+                      ((8, 448, 1500, 12, 12, 64), False),
+                      ((8, 448, 448, 12, 12, 64), True))
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 #: in bfloat16 the plain version works in float32 and rounds once to
 #: bfloat16, and the kernel carries P as bf16 hi + lo (about 2**-16 of p),
@@ -498,6 +536,11 @@ SERVE_F32_TOL = 1e-3
 #: within this many times the step's decode-vs-recompute distance of its
 #: row's largest logit (a near tie may flip a token, a wrong token may not)
 SERVE_TOKEN_SLACK = 2.0
+#: [ssm] (b): the most positions, as a share of the generated ones, at
+#: which the decode and the cache-less forward may route some token to
+#: other experts (a near tie of the router broken by a rounding
+#: difference; more than this is not rounding)
+MOE_FLIP_SHARE = 0.25
 
 
 def fail(msg: str) -> None:
@@ -909,7 +952,8 @@ def _flash_limit_used(got, want, v):
 
 def phase_flash():
     """flash_attn against its plain version (``ref.attention``) on the JAX
-    kernel test's grid and the dense LM's shape; CUDA-event times of the
+    kernel test's grid, the dense LM's shape and the shapes of the jamba
+    and whisper models (``FLASH_MODEL_SHAPES``); CUDA-event times of the
     kernel, the plain version and ``scaled_dot_product_attention`` (one
     PyTorch call of the same function, timed here only: the port never
     calls it)."""
@@ -924,6 +968,8 @@ def phase_flash():
                for dtype in (torch.float32, torch.bfloat16)]
     checks += [(FLASH_LM_SHAPE, torch.bfloat16, True),
                (FLASH_LM_SHAPE, torch.float32, True)]
+    checks += [(shape, torch.bfloat16, causal)
+               for shape, causal in FLASH_MODEL_SHAPES]
     rows = []
     for i, (shape, dtype, causal) in enumerate(checks):
         q, k, v = _flash_inputs(shape, dtype, seed=200 + i)
@@ -2328,6 +2374,16 @@ def _lm_batch(vocab, batch, seq, seed):
     return {k: torch.from_numpy(v).to("cuda") for k, v in data.items()}
 
 
+def _frames(arch, batch, seed):
+    """(batch, num_frames, d_model) recipe frames on the card, in
+    bfloat16 (``convert.recipe_frames``)."""
+    import torch
+    from repro_torch.models import convert
+    return torch.from_numpy(convert.recipe_frames(
+        batch, arch.num_frames, arch.d_model, seed)).to("cuda",
+                                                        torch.bfloat16)
+
+
 def _lm_record_check(phase, rec, kernel_mod, name):
     """(a) float32 weights from the seeded numpy recipe, the first layers
     at full width, held to the JAX package's record; ``kernel_mod`` is the
@@ -2427,7 +2483,7 @@ def _logit_gap(a, b):
 
 def _lm_full(phase, cfg, kernel_mod, entry, plain, oracle, oracle64,
              limit_used, limit_text, name):
-    """(b): the full model in bfloat16 through the kernel, timed; every one
+    """(b): the model in bfloat16 through the kernel, timed; every one
     of its kernel launches held to the plain version on the same inputs;
     its loss held to the same model with the plain oracle; its logits held
     to that model's, within LOGIT_YARDSTICK times that model's distance
@@ -2435,23 +2491,34 @@ def _lm_full(phase, cfg, kernel_mod, entry, plain, oracle, oracle64,
     ``oracle64`` (float64 arithmetic). ``kernel_mod.<entry>`` is the
     wrapper of kernel ``name`` that the model calls and ``plain`` its plain
     version; ``limit_used(got, want, args)`` is the largest share of the
-    per-launch limit (``limit_text``) an output element uses."""
+    per-launch limit (``limit_text``) an output element uses. ``cfg`` may
+    name a ``layer_range``, the kernel's ``launches`` a forward (default:
+    one a layer) and ``frames`` for an encoder (recipe frames). In a model
+    with MoE blocks, the tokens that two forwards route to other experts
+    (``_route_flips``) are left out of their logits' comparison."""
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.kernels import ref
+    from repro_torch.models import moe
     from repro_torch.models.model import Model
 
     arch = get_arch(cfg["arch"])
+    kw = {"layer_range": cfg["layer_range"]} if "layer_range" in cfg else {}
+    lo, hi = cfg.get("layer_range", (0, arch.num_layers))
+    expected = cfg.get("launches", arch.num_layers)
     # what earlier phases keep on the card (the other LM, kept for the
     # profile) is not this forward's memory
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = Model(arch, use_flash=True, device="cuda",
-                  generator=torch.Generator("cuda").manual_seed(cfg["seed"]))
+                  generator=torch.Generator("cuda").manual_seed(cfg["seed"]),
+                  **kw)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in model.state_dict().values())
     batch = _lm_batch(arch.vocab_size, cfg["batch"], cfg["seq"], cfg["seed"])
+    if cfg.get("frames"):
+        batch["frames"] = _frames(arch, cfg["batch"], cfg["seed"])
     tokens = cfg["batch"] * cfg["seq"]
 
     model(batch)                                   # warm-up
@@ -2467,9 +2534,9 @@ def _lm_full(phase, cfg, kernel_mod, entry, plain, oracle, oracle64,
     launches = kernel_mod.LAUNCHES
     peak = torch.cuda.max_memory_allocated() - base
     per_forward = launches / cfg["runs"]
-    if per_forward != arch.num_layers:
+    if per_forward != expected:
         fail(f"{phase} (b): {per_forward} {name} launches per forward, "
-             f"expected {arch.num_layers}")
+             f"expected {expected}")
 
     # one more forward, each launch held to the plain version on its inputs
     kernel_call, layer_errs = getattr(kernel_mod, entry), []
@@ -2481,29 +2548,40 @@ def _lm_full(phase, cfg, kernel_mod, entry, plain, oracle, oracle64,
         return out
 
     setattr(kernel_mod, entry, held)
+    moe.RECORD = []
     try:
         logits, _ = model(batch)
     finally:
         setattr(kernel_mod, entry, kernel_call)
-    if len(layer_errs) != arch.num_layers or max(layer_errs) > 1.0:
+        routed = [moe.RECORD]
+        moe.RECORD = None
+    if len(layer_errs) != expected or max(layer_errs) > 1.0:
         fail(f"{phase} (b): in-model {name} launches against the plain "
              f"version use {layer_errs} of the limit ({limit_text})")
     loss = float(model.loss(batch))
 
-    plain_model = Model(arch, use_flash=False, device="meta")
+    plain_model = Model(arch, use_flash=False, device="meta", **kw)
     plain_model.load_state_dict(model.state_dict(), strict=True, assign=True)
     kernel_mod.LAUNCHES = 0
+    moe.RECORD = []
     t0 = time.perf_counter()
-    want, _ = plain_model(batch)
-    torch.cuda.synchronize()
+    try:
+        want, _ = plain_model(batch)
+        torch.cuda.synchronize()
+    finally:
+        routed.append(moe.RECORD)
+        moe.RECORD = None
     plain_wall = time.perf_counter() - t0
     want_loss = float(plain_model.loss(batch))
     kept = getattr(ref, oracle)
     setattr(ref, oracle, oracle64)
+    moe.RECORD = []
     try:
         exact, _ = plain_model(batch)
     finally:
         setattr(ref, oracle, kept)
+        routed.append(moe.RECORD)
+        moe.RECORD = None
     if kernel_mod.LAUNCHES:
         fail(f"{phase} (b): the plain-{oracle} model launched the kernel")
     loss_rel = abs(loss - want_loss) / abs(want_loss)
@@ -2513,8 +2591,33 @@ def _lm_full(phase, cfg, kernel_mod, entry, plain, oracle, oracle64,
         fail(f"{phase} (b): logits {tuple(logits.shape)} finite={finite}; "
              f"loss {loss!r} vs plain-{oracle} {want_loss!r} (rel "
              f"{loss_rel:.3g}, limit 1e-3)")
-    gaps = {"kernel_vs_plain": _logit_gap(logits, want),
-            "plain_vs_float64": _logit_gap(want, exact),
+    # an MoE model: tokens routed differently by two forwards (a near tie
+    # flipped) are left out of their comparison; the MoE block must be the
+    # model's last, so that a flip moves its group's logits alone
+    same = {"kernel_vs_plain": None, "plain_vs_float64": None}
+    flips = {}
+    if routed[0]:
+        if model.segments[-1].pattern[-1] != "moe":
+            fail(f"{phase} (b): MoE routing flips are left out only where "
+                 f"the MoE block is the model's last")
+        tables = [_routes(r, 1, False) for r in routed]
+        for key, (a, b) in zip(same, ((0, 1), (1, 2))):
+            (mask,), n = _route_flips(tables[a], tables[b])
+            flips[key] = {"tokens": int(mask.sum()), "assignments": n}
+            if int(mask.sum()) > MOE_FLIP_SHARE * mask.numel():
+                fail(f"{phase} (b): MoE routing differs for "
+                     f"{int(mask.sum())} of {mask.numel()} tokens ({key})")
+            same[key] = ~mask.to(logits.device)
+
+    def tokens_of(x, keep):
+        return x if keep is None else x.reshape(-1, x.shape[-1])[keep]
+
+    gaps = {"kernel_vs_plain": _logit_gap(
+                tokens_of(logits, same["kernel_vs_plain"]),
+                tokens_of(want, same["kernel_vs_plain"])),
+            "plain_vs_float64": _logit_gap(
+                tokens_of(want, same["plain_vs_float64"]),
+                tokens_of(exact, same["plain_vs_float64"])),
             "kernel_vs_float64": _logit_gap(logits, exact)}
     # the yardstick: how far a more exact arithmetic alone moves these logits
     logit_limit = LOGIT_YARDSTICK * gaps["plain_vs_float64"][0]
@@ -2524,15 +2627,16 @@ def _lm_full(phase, cfg, kernel_mod, entry, plain, oracle, oracle64,
              f"plain forward's distance from its float64 {oracle} "
              f"({gaps['plain_vs_float64'][0]:.3g})")
     mean_wall = sum(walls) / len(walls)
-    out = {"arch": cfg["arch"], "params": n_params, "init_s": init_s,
+    out = {"arch": cfg["arch"], "layers": [lo, hi], "params": n_params,
+           "init_s": init_s,
            "batch": cfg["batch"], "seq": cfg["seq"], "walls_s": walls,
            "tokens_per_s": tokens / mean_wall, "launches": launches,
            "launches_per_forward": per_forward, "peak_bytes": peak,
            "layer_limit_used": layer_errs,
            "loss": loss, "plain_loss": want_loss, "loss_rel_err": loss_rel,
            "logit_gaps": gaps, "logit_limit": logit_limit,
-           "plain_wall_s": plain_wall}
-    say(phase, f"(b) {cfg['arch']}, {arch.num_layers} layers, {n_params} "
+           "routing_flips": flips, "plain_wall_s": plain_wall}
+    say(phase, f"(b) {cfg['arch']}, layers {lo}-{hi}, {n_params} "
                f"parameters bfloat16 (drawn on the card in {init_s:.2f} s), "
                f"B={cfg['batch']} T={cfg['seq']}: wall per forward "
                f"{', '.join(f'{w:.4f}' for w in walls)} s, "
@@ -2550,7 +2654,10 @@ def _lm_full(phase, cfg, kernel_mod, entry, plain, oracle, oracle64,
         "; ".join(f"{k.replace('_', ' ')} {v[0]:.3g} / {v[1]:.3g}"
                   for k, v in gaps.items()) +
         f"; kernel vs plain held within {logit_limit:.3g} "
-        f"({LOGIT_YARDSTICK} x plain vs float64)")
+        f"({LOGIT_YARDSTICK} x plain vs float64)" +
+        "".join(f"; {k.replace('_', ' ')} leaves out the {v['tokens']} "
+                f"tokens MoE routed differently ({v['assignments']} "
+                f"assignments)" for k, v in flips.items()))
     del plain_model, want, exact
     return model, batch, out
 
@@ -2696,11 +2803,12 @@ def _serve_record_check(name, rec):
     return {"arch": name, "tokens": got, "logit_max_abs_err": err}
 
 
-def _recompute(model, prompts, tokens, positions, oracle=None, oracle64=None):
+def _recompute(model, prompts, tokens, positions, exact=(), frames=None):
     """Logits of the cache-less forward over the served sequence (prompt,
-    then every served token but the last) at ``positions``; with
-    ``oracle``, the same forward with ``ref.<oracle>`` replaced by
-    ``oracle64``. The MoE blocks route the token groups that serving
+    then every served token but the last, with ``frames`` for an encoder)
+    at ``positions``; ``exact`` lists (module, name, replacement): the
+    same forward with each ``module.name`` replaced (by its float64
+    twin). The MoE blocks route the token groups that serving
     routed: the prompt as one group (the prefill), then each later
     position as its own group of B tokens (a decode step). A block's
     capacity, ``max(1, int(1.25 * T * top_k / E))``, and so which
@@ -2708,7 +2816,6 @@ def _recompute(model, prompts, tokens, positions, oracle=None, oracle64=None):
     the whole sequence as one group is another function (at T = 8 a
     32-expert top-8 block drops assignments, at T = 4600 none)."""
     import torch
-    from repro_torch.kernels import ref
     from repro_torch.models import moe
     P = prompts.shape[1]
     seq = torch.cat([prompts, tokens[:, :-1]], dim=1)
@@ -2719,16 +2826,18 @@ def _recompute(model, prompts, tokens, positions, oracle=None, oracle64=None):
                          + [apply_moe(x[:, t:t + 1], p, **kw)
                             for t in range(P, x.shape[1])], dim=1)
 
-    kept = getattr(ref, oracle) if oracle else None
-    if oracle:
-        setattr(ref, oracle, oracle64)
+    kept = [(mod, name, getattr(mod, name)) for mod, name, _ in exact]
+    for mod, name, twin in exact:
+        setattr(mod, name, twin)
+    batch = {"tokens": seq} if frames is None else {"tokens": seq,
+                                                    "frames": frames}
     moe.apply_moe = grouped
     try:
-        logits, _ = model({"tokens": seq})
+        logits, _ = model(batch)
     finally:
         moe.apply_moe = apply_moe
-        if oracle:
-            setattr(ref, oracle, kept)
+        for mod, name, fn in kept:
+            setattr(mod, name, fn)
     return logits[:, positions].float()
 
 
@@ -2773,6 +2882,133 @@ def _moe_recount(records, batch):
     return calls, dev, host, agree
 
 
+def _routes(records, groups, step_major):
+    """A ``moe.RECORD`` as [group][layer] of (T, k) expert ids and kept
+    flags in token order: ``generate`` records per step, per layer
+    (``step_major``: the prefill's group, then one group a decode step); a
+    forward records per layer, per group (one group a layer;
+    ``_recompute``: the prompt, then one group a position). ``keep`` is
+    recorded in the assignments' order sorted (stably) by expert."""
+    import torch
+    L = len(records) // max(groups, 1)
+    if L * groups != len(records):
+        fail(f"MoE routing records: {len(records)} calls for {groups} "
+             f"groups")
+
+    def token_order(r):
+        ids = r["expert_ids"]
+        order = torch.argsort(ids.reshape(-1), stable=True)
+        kept = torch.empty_like(r["keep"])
+        kept[order] = r["keep"]
+        return ids, kept.reshape(ids.shape)
+
+    return [[token_order(records[g * L + l if step_major
+                                 else l * groups + g])
+             for l in range(L)] for g in range(groups)]
+
+
+def _route_flips(a, b):
+    """Two routings [group][layer] of the same tokens (``_routes``): per
+    group a mask of the tokens (group order) that some layer sent to other
+    experts or dropped where the other kept, and the count of (token, k)
+    assignments that differ. A flip is a near tie of the router broken by
+    the last bit of the arithmetic, after which the token's output moves
+    by a whole expert's; through the experts' capacity it may drop another
+    token of its group."""
+    import torch
+    masks, n = [], 0
+    for ga, gb in zip(a, b):
+        differ = [(ia != ib) | (ka != kb)
+                  for (ia, ka), (ib, kb) in zip(ga, gb)]
+        n += sum(int(d.sum()) for d in differ)
+        masks.append(torch.stack([d.any(dim=-1) for d in differ])
+                     .any(dim=0).cpu())
+    return masks, n
+
+
+def _decode_check(tag, model, prompts, tokens, dec, exact, frames=None,
+                  routed=None):
+    """The decode logits ``dec`` (B, G, V) of every generated position
+    held to the cache-less forward over the served sequence within
+    LOGIT_YARDSTICK times that forward's largest distance over the
+    generated positions from the same forward with the replacements
+    ``exact`` (``_recompute``: the oracles whose sums the decode takes in
+    another order, in float64), and the token rule. With ``routed`` (the
+    decode's ``moe.RECORD``), the positions whose step some MoE layer
+    routed differently (``_route_flips``) in the decode and the
+    cache-less forward, or in that forward and its float64 twin, are
+    counted, at most MOE_FLIP_SHARE of them each, and left out of the
+    yardstick's comparison on their side, though not out of the token
+    rule. Returns the distances, the shares of the limits used and a line
+    of text (``text``)."""
+    import torch
+    from repro_torch.models import moe
+    P, G = prompts.shape[1], tokens.shape[1]
+    positions = torch.arange(P - 1, P + G - 1, device=prompts.device)
+    records = []
+    for swaps in ((), exact):
+        moe.RECORD = [] if routed is not None else None
+        try:
+            records.append((_recompute(model, prompts, tokens, positions,
+                                       swaps, frames=frames), moe.RECORD))
+        finally:
+            moe.RECORD = None
+    (full, recomputed), (full64, recomputed64) = records
+    oracle = " and ".join(name for _, name, _ in exact)
+    gaps = (dec - full).abs().amax(dim=(0, 2))               # (gen,)
+    yard = (full - full64).abs().amax(dim=(0, 2))
+    finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
+    flips = flips64 = torch.zeros(G, dtype=torch.bool)
+    flipped = flipped64 = 0
+    if routed is not None:
+        again = _routes(recomputed, G, False)
+        masks, flipped = _route_flips(_routes(routed, G, True), again)
+        masks64, flipped64 = _route_flips(
+            again, _routes(recomputed64, G, False))
+        flips = torch.tensor([bool(m.any()) for m in masks])
+        flips64 = torch.tensor([bool(m.any()) for m in masks64])
+        if max(int(flips.sum()), int(flips64.sum())) > MOE_FLIP_SHARE * G:
+            fail(f"{tag}: MoE routing differs at {int(flips.sum())} of {G} "
+                 f"positions between the decode and the cache-less forward "
+                 f"({flipped} assignments) and at {int(flips64.sum())} "
+                 f"between that forward and its float64 twin "
+                 f"({flipped64}): more than {MOE_FLIP_SHARE} of them")
+    held = gaps[~flips.to(gaps.device)]
+    yard = yard[~flips64.to(yard.device)]
+    # the yardstick is the distance over all the generated positions: at
+    # one position alone it is one draw of a noisy distance (PERF.md)
+    yard_used = float(held.max()
+                      / (LOGIT_YARDSTICK * yard.max()).clamp(min=1e-30))
+    token_used, short = _token_rule(full, tokens, gaps)
+    if not finite or not yard_used <= 1.0 or not token_used <= 1.0:
+        fail(f"{tag}: finite={finite}; decode logits vs the "
+             f"cache-less forward by position {gaps.tolist()}, beyond "
+             f"{LOGIT_YARDSTICK} x that forward's largest distance from "
+             f"float64 {oracle} (by position {yard.tolist()}; "
+             f"{yard_used:.3g} of the limit); "
+             f"token rule {token_used:.3g} of its slack (row max less the "
+             f"served token's logit {short.tolist()})")
+    text = (f"decode vs cache-less logits max {float(held.max()):.3g} over "
+            f"the {len(held)} positions held ({yard_used:.3g} of "
+            f"{LOGIT_YARDSTICK} x the forward's largest distance from "
+            f"float64 {oracle}, {float(yard.max()):.3g} over "
+            f"{len(yard)} positions); token rule {token_used:.3g} of its "
+            f"slack")
+    if routed is not None:
+        text += (f"; MoE routing differs at {int(flips.sum())} of {G} "
+                 f"positions from the decode ({flipped} assignments; there "
+                 f"the logits differ by up to {float(gaps.max()):.3g}) and "
+                 f"at {int(flips64.sum())} from the float64 twin "
+                 f"({flipped64})")
+    return {"decode_vs_recompute": gaps.tolist(),
+            "recompute_vs_float64": yard.tolist(),
+            "routing_flips": flips.tolist(), "flipped_assignments": flipped,
+            "routing_flips_float64": flips64.tolist(),
+            "flipped_assignments_float64": flipped64,
+            "yardstick_used": yard_used, "token_rule_used": token_used,
+            "text": text}
+
+
 def _serve_full(name, smi_line):
     """(b) the arch at full width and depth, bf16 weights drawn from a
     seed, through ``serve``: prefill ms, decode tokens/s, peak memory;
@@ -2787,7 +3023,7 @@ def _serve_full(name, smi_line):
     import torch
     from repro_torch.configs import get_arch
     from repro_torch.core.accel import segred
-    from repro_torch.kernels import flash_attention, rwkv6_scan
+    from repro_torch.kernels import flash_attention, ref, rwkv6_scan
     from repro_torch.launch.serve import generate, serve
     from repro_torch.models import moe
     from repro_torch.models.model import Model, build_segments
@@ -2832,34 +3068,14 @@ def _serve_full(name, smi_line):
                                 cfg["seed"] + 1),
                             dtype=torch.int32, device=dev)
     positions = torch.arange(P - 1, P + G - 1, device=dev)
-    dec = stats.pop("logits")
-    full = _recompute(model, prompts, tokens, positions)
-    full64 = _recompute(model, prompts, tokens, positions, oracle, oracle64)
-    gaps = (dec - full).abs().amax(dim=(0, 2))               # (gen,)
-    yard = (full - full64).abs().amax(dim=(0, 2))
-    finite = bool(torch.isfinite(dec).all() and torch.isfinite(full).all())
-    # the yardstick is the distance over all the generated positions: at
-    # one position alone it is one draw of a noisy distance (PERF.md)
-    yard_used = float(gaps.max()
-                      / (LOGIT_YARDSTICK * yard.max()).clamp(min=1e-30))
-    token_used, short = _token_rule(full, tokens, gaps)
-    if not finite or not yard_used <= 1.0 or not token_used <= 1.0:
-        fail(f"[serve] (b) {name}: finite={finite}; decode logits vs the "
-             f"cache-less forward by position {gaps.tolist()}, beyond "
-             f"{LOGIT_YARDSTICK} x that forward's largest distance from "
-             f"float64 {oracle} (by position {yard.tolist()}; "
-             f"{yard_used:.3g} of the limit); "
-             f"token rule {token_used:.3g} of its slack (row max less the "
-             f"served token's logit {short.tolist()})")
+    checked = _decode_check(f"[serve] (b) {name}", model, prompts, tokens,
+                            stats.pop("logits"), ((ref, oracle, oracle64),))
     out = {"arch": name, "layers": arch.num_layers, "batch": B, "prompt": P,
            "gen": G, "serve_wall_s": wall,
            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
            "decode_tok_per_s": stats["decode_tok_per_s"],
            "partitions": stats["partitions"], "peak_bytes": peak,
-           "launches": launches, "log": lines,
-           "decode_vs_recompute": gaps.tolist(),
-           "recompute_vs_float64": yard.tolist(),
-           "yardstick_used": yard_used, "token_rule_used": token_used}
+           "launches": launches, "log": lines, **checked}
     say("serve", f"(b) {name}, {arch.num_layers} layers bfloat16, B={B}, "
                  f"prompt {P}, {G} tokens: prefill "
                  f"{stats['prefill_s'] * 1e3:.1f} ms, decode "
@@ -2867,15 +3083,7 @@ def _serve_full(name, smi_line):
                  f"({stats['decode_s']:.3f} s), serve() {wall:.2f} s with "
                  f"plan and weights; peak memory {peak / 2**30:.2f} GiB; "
                  f"{smi_line}; launches {launches}")
-    ratio = float((gaps / yard.clamp(min=1e-30)).max())
-    say("serve", f"(b) {name}: decode vs cache-less logits max "
-                 f"{float(gaps.max()):.3g} over the {G} positions "
-                 f"({yard_used:.3g} of {LOGIT_YARDSTICK} x the forward's "
-                 f"largest distance from float64 {oracle}, "
-                 f"{float(yard.max()):.3g}; position by position the "
-                 f"largest ratio {ratio:.3g}); token rule {token_used:.3g} "
-                 f"of its slack")
-    del full, full64, dec
+    say("serve", f"(b) {name}: {checked['text']}")
 
     if "moe" in kinds:
         calls, dev_drops, host_drops, agree = _moe_recount(records, B)
@@ -3302,6 +3510,560 @@ def phase_train(smi_line):
             "launches": launches}
 
 
+#: [ssm] (a): the JAX package's jamba-1.5-large-398b at full width, layer
+#: range (0, 1) (one ssm + ffn layer, the embedding and the head: 2.1e9
+#: parameters), float32 recipe weights (seed 0): the loss and sampled
+#: logits [b, t, v, logit] of a B=1, T=128 recipe batch, then a 16-token
+#: prompt's 8 greedy tokens through its eager cached forward with a
+#: float32 cache ([step, v, logit] at ids 0, 1, V/2 - 1, V - 1 and the
+#: token picked); made on the CPU by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=src python tools/ssm_encdec_records.py ssm
+SSM_RECORD = {
+    "arch": "jamba-1.5-large-398b", "layers": 1, "batch": 1, "seq": 128,
+    "prompt": 16, "gen": 8, "seed": 0, "loss": 11.655620574951172,
+    "logits": [
+        [0, 0, 0, -0.09398984909057617], [0, 0, 1, -1.02395761013031],
+        [0, 0, 32767, -0.25374835729599], [0, 0, 65535, -0.8774965405464172],
+        [0, 1, 0, -0.24630439281463623], [0, 1, 1, 0.5518201589584351],
+        [0, 1, 32767, 0.49756431579589844], [0, 1, 65535, 0.9559178948402405],
+        [0, 64, 0, -0.10654714703559875], [0, 64, 1, 0.14791318774223328],
+        [0, 64, 32767, -0.2466454803943634],
+        [0, 64, 65535, -0.5327504873275757], [0, 127, 0, 1.2874805927276611],
+        [0, 127, 1, 0.6749961972236633], [0, 127, 32767, -0.4350321888923645],
+        [0, 127, 65535, -1.4453827142715454],
+    ],
+    "serve": {
+        "tokens": [
+            5424, 43945, 2056, 3284, 22927, 38681, 36519, 47427,
+        ],
+        "logits": [
+            [0, 0, -1.070108413696289], [0, 1, -1.2515612840652466],
+            [0, 32767, -0.31878915429115295], [0, 65535, -0.04350095987319946],
+            [0, 5424, 4.185530662536621], [1, 0, 0.19314995408058167],
+            [1, 1, 0.5089541673660278], [1, 32767, -0.13190481066703796],
+            [1, 65535, -0.954322874546051], [1, 43945, 3.8989086151123047],
+            [2, 0, -1.7514104843139648], [2, 1, -2.282073736190796],
+            [2, 32767, 2.924535036087036], [2, 65535, 0.3151272237300873],
+            [2, 2056, 4.2850728034973145], [3, 0, 1.3963532447814941],
+            [3, 1, 0.3863461911678314], [3, 32767, 0.04856313392519951],
+            [3, 65535, -0.48576483130455017], [3, 3284, 4.438215732574463],
+            [4, 0, 0.48923763632774353], [4, 1, 0.19754594564437866],
+            [4, 32767, -0.6398404240608215], [4, 65535, 0.971146285533905],
+            [4, 22927, 3.9975192546844482], [5, 0, 0.5445553660392761],
+            [5, 1, 2.257275342941284], [5, 32767, -0.10849624127149582],
+            [5, 65535, 2.7996115684509277], [5, 38681, 4.305368900299072],
+            [6, 0, 1.2941516637802124], [6, 1, -0.7778582572937012],
+            [6, 32767, -1.8659236431121826], [6, 65535, -0.6446307897567749],
+            [6, 36519, 4.484760761260986], [7, 0, 0.001658909721300006],
+            [7, 1, -2.029076099395752], [7, 32767, -1.4642845392227173],
+            [7, 65535, 1.404421329498291], [7, 47427, 4.190988063812256],
+        ],
+    },
+}
+#: [ssm] (b): jamba at full width, layers 6-8 (ssm + ffn, then attn + a
+#: 16-expert top-2 moe of d_ff 24576: 23.8 GB of bf16 weights drawn on the
+#: card), scored at B=1, T=4096 with flash attention (one launch a
+#: forward), then served by ``generate`` (weight streaming, which the full
+#: depth needs, is not ported)
+SSM_FULL = {"arch": "jamba-1.5-large-398b", "layer_range": (6, 8),
+            "launches": 1, "batch": 1, "seq": 4096, "seed": 1, "runs": 3}
+SSM_SERVE = {"batch": 8, "prompt": 512, "gen": 64, "seed": 2}
+#: [ssm] (b): one full-width layer's scan (its own weights in float32) at
+#: T = 512 against the recurrence in float64, step by step, from the same
+#: float32 projections: y and the last state within ``tol`` of their
+#: largest magnitude
+SSM_SCAN = {"seq": 512, "tol": 1e-5}
+
+#: [encdec] (a): the JAX package's whisper-small at full width and depth,
+#: bfloat16 recipe weights (seed 0), one row of 24 tokens and recipe frames
+#: (seed 1): its cache-less forward's logits [t, v, logit] at every
+#: position for ids 0, 1, V/2 - 1, V - 1 and the position's arg max, and
+#: ``spread``, its largest distance over all logits from the same forward
+#: run op by op; made on the CPU by
+#:   JAX_PLATFORMS=cpu PYTHONPATH=src python tools/ssm_encdec_records.py encdec
+ENCDEC_RECORD = {
+    "arch": "whisper-small", "batch": 1, "prompt": 16, "steps": 8, "seed": 0,
+    "frames_seed": 1, "spread": 0.005859375,
+    "tokens": [
+        44117, 33036, 26510, 13992, 15965, 2125, 3902, 857, 9090, 42180, 33681,
+        47340, 26120, 31463, 50347, 37835, 32792, 28195, 29040, 48497, 14384,
+        42314, 34795, 142,
+    ],
+    "logits": [
+        [0, 0, -0.035400390625], [0, 1, -0.1474609375],
+        [0, 25931, -0.0009002685546875], [0, 51864, 0.01220703125],
+        [0, 25242, 0.50390625], [1, 0, -0.0361328125], [1, 1, -0.142578125],
+        [1, 25931, 0.00799560546875], [1, 51864, 0.006439208984375],
+        [1, 25242, 0.5234375], [2, 0, -0.0341796875], [2, 1, -0.142578125],
+        [2, 25931, 0.00738525390625], [2, 51864, 0.021240234375],
+        [2, 25242, 0.52734375], [3, 0, -0.0286865234375],
+        [3, 1, -0.1435546875], [3, 25931, 0.0167236328125],
+        [3, 51864, 0.01904296875], [3, 25242, 0.5234375],
+        [4, 0, -0.027587890625], [4, 1, -0.1474609375],
+        [4, 25931, 0.01055908203125], [4, 51864, 0.0177001953125],
+        [4, 25242, 0.53125], [5, 0, -0.03466796875], [5, 1, -0.15234375],
+        [5, 25931, 0.015869140625], [5, 51864, 0.01220703125],
+        [5, 25242, 0.5234375], [6, 0, -0.018798828125], [6, 1, -0.15625],
+        [6, 25931, 0.016845703125], [6, 51864, 0.01708984375],
+        [6, 25242, 0.5234375], [7, 0, -0.0281982421875], [7, 1, -0.1611328125],
+        [7, 25931, 0.0137939453125], [7, 51864, 0.01904296875],
+        [7, 25242, 0.5234375], [8, 0, -0.0228271484375], [8, 1, -0.16015625],
+        [8, 25931, 0.0093994140625], [8, 51864, 0.005645751953125],
+        [8, 25242, 0.5234375], [9, 0, -0.0191650390625], [9, 1, -0.1591796875],
+        [9, 25931, 0.019775390625], [9, 51864, 0.017822265625],
+        [9, 25242, 0.5234375], [10, 0, -0.0164794921875],
+        [10, 1, -0.1533203125], [10, 25931, 0.0167236328125],
+        [10, 51864, 0.01025390625], [10, 25242, 0.53125],
+        [11, 0, -0.0274658203125], [11, 1, -0.1611328125],
+        [11, 25931, 0.011474609375], [11, 51864, 0.01275634765625],
+        [11, 25242, 0.5234375], [12, 0, -0.023681640625],
+        [12, 1, -0.1572265625], [12, 25931, 0.012451171875],
+        [12, 51864, 0.0189208984375], [12, 25242, 0.5234375],
+        [13, 0, -0.0211181640625], [13, 1, -0.158203125],
+        [13, 25931, 0.005157470703125], [13, 51864, 0.02099609375],
+        [13, 25242, 0.5234375], [14, 0, -0.02001953125], [14, 1, -0.16015625],
+        [14, 25931, 0.01373291015625], [14, 51864, 0.01544189453125],
+        [14, 25242, 0.53125], [15, 0, -0.0255126953125],
+        [15, 1, -0.1533203125], [15, 25931, 0.0172119140625],
+        [15, 51864, 0.0166015625], [15, 25242, 0.53125],
+        [16, 0, -0.026611328125], [16, 1, -0.1611328125],
+        [16, 25931, 0.0145263671875], [16, 51864, 0.02099609375],
+        [16, 25242, 0.52734375], [17, 0, -0.0225830078125],
+        [17, 1, -0.1640625], [17, 25931, 0.01373291015625],
+        [17, 51864, 0.022216796875], [17, 25242, 0.52734375],
+        [18, 0, -0.022705078125], [18, 1, -0.16015625],
+        [18, 25931, 0.0125732421875], [18, 51864, 0.01177978515625],
+        [18, 25242, 0.52734375], [19, 0, -0.0223388671875],
+        [19, 1, -0.1630859375], [19, 25931, 0.01153564453125],
+        [19, 51864, 0.021240234375], [19, 25242, 0.5234375],
+        [20, 0, -0.0216064453125], [20, 1, -0.1630859375],
+        [20, 25931, 0.015625], [20, 51864, 0.0206298828125],
+        [20, 25242, 0.53125], [21, 0, -0.0206298828125], [21, 1, -0.158203125],
+        [21, 25931, 0.0164794921875], [21, 51864, 0.0152587890625],
+        [21, 25242, 0.5234375], [22, 0, -0.021484375], [22, 1, -0.1552734375],
+        [22, 25931, 0.01220703125], [22, 51864, 0.0167236328125],
+        [22, 25242, 0.52734375], [23, 0, -0.0162353515625],
+        [23, 1, -0.1611328125], [23, 25931, 0.01177978515625],
+        [23, 51864, 0.00946044921875], [23, 25242, 0.52734375],
+    ],
+}
+#: [encdec] (b): whisper-small through ``serve`` (bf16, 1500 frames a row),
+#: and the same weights scored with flash attention at its decoder's
+#: context of 448 tokens: 12 encoder, 12 causal and 12 cross launches
+ENCDEC_SERVE = {"arch": "whisper-small", "batch": 8, "prompt": 64, "gen": 64,
+                "seed": 1}
+ENCDEC_FULL = {"arch": "whisper-small", "launches": 36, "batch": 8,
+               "seq": 448, "seed": 1, "runs": 3, "frames": True}
+
+
+def _recipe_on_card(model, seed, dtype, leaves=None):
+    """The seeded numpy recipe (``convert.recipe_leaves``, or ``leaves``
+    drawn before for the same shapes and seed) into the meta-device
+    ``model``, one leaf at a time, in ``dtype`` on the card. Returns the
+    seconds it took."""
+    import torch
+    from repro_torch.models import convert
+    t0 = time.perf_counter()
+    shapes = {k: tuple(t.shape) for k, t in model.state_dict().items()}
+    if leaves is None:
+        leaves = convert.recipe_leaves(shapes, seed)
+    model.load_state_dict({k: torch.from_numpy(a).to("cuda", dtype)
+                           for k, a in leaves}, strict=True, assign=True)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _ssm_recipe_later():
+    """Starts drawing ``SSM_RECORD``'s recipe (2.1e9 float32 values, about
+    half a minute on one host core) on a thread, so that it overlaps the
+    phases before ``[ssm]``: numpy fills its arrays without holding the
+    GIL. Returns a function that waits for the leaves (name, array) and
+    hands them over, or raises what the thread raised."""
+    import threading
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import convert
+    from repro_torch.models.model import Model
+    rec = SSM_RECORD
+    shapes = {k: tuple(t.shape) for k, t in Model(
+        get_arch(rec["arch"]), layer_range=(0, rec["layers"]),
+        device="meta").state_dict().items()}
+    out = {}
+
+    def draw():
+        try:
+            out["leaves"] = list(convert.recipe_leaves(shapes, rec["seed"]))
+        except BaseException as exc:      # handed to the waiting phase
+            out["error"] = exc
+
+    thread = threading.Thread(target=draw, name="ssm-recipe", daemon=True)
+    thread.start()
+
+    def wait():
+        thread.join()
+        if "error" in out:
+            raise out["error"]
+        return out.pop("leaves")
+
+    return wait
+
+
+def _scan_float64(a, b):
+    """``ssm._scan`` summed in float64, one step after another, and
+    rounded to b's dtype: the same function in a more exact arithmetic,
+    the yardstick for what the scan's summation order does."""
+    import torch
+    ad, bd = a.double(), b.double()
+    h = torch.zeros_like(bd[:, 0])
+    out = torch.empty_like(bd)
+    for t in range(bd.shape[1]):
+        h = ad[:, t] * h + bd[:, t]
+        out[:, t] = h
+    return out.to(b.dtype)
+
+
+def _ssm_record_check(leaves=None):
+    """[ssm] (a): the port at the record's layers, float32 recipe weights
+    (``leaves``: drawn before, ``_ssm_recipe_later``): loss and sampled
+    logits held to the JAX record, then ``generate``'s 8 tokens equal to
+    JAX's greedy loop, its logits within SERVE_RECORD_TOL."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.model import Model
+
+    rec = SSM_RECORD
+    arch = get_arch(rec["arch"])
+    model = Model(arch, layer_range=(0, rec["layers"]), attn_impl="chunked",
+                  remat=False, device="meta")
+    setup_s = _recipe_on_card(model, rec["seed"], torch.float32, leaves)
+    del leaves
+    batch = _lm_batch(arch.vocab_size, rec["batch"], rec["seq"], rec["seed"])
+    logits, _ = model(batch)
+    loss = float(model.loss(batch))
+    loss_rel = abs(loss - rec["loss"]) / abs(rec["loss"])
+    logit_err = max(abs(float(logits[b, t, v]) - want)
+                    for b, t, v, want in rec["logits"])
+    if not (loss_rel <= 1e-4 and logit_err <= 1e-3):
+        fail(f"[ssm] (a): loss {loss!r} vs JAX record {rec['loss']!r} (rel "
+             f"{loss_rel:.3g}, limit 1e-4); sampled logits off by "
+             f"{logit_err:.3g} (limit 1e-3)")
+    del logits
+    prompts = torch.from_numpy(_serve_prompts(
+        arch.vocab_size, 1, rec["prompt"], rec["seed"])).cuda()
+    tokens, stats = generate(model, prompts, rec["gen"],
+                             cache_dtype=torch.float32, keep_logits=True)
+    got, want = tokens[0].tolist(), rec["serve"]
+    err = max(abs(float(stats["logits"][0][step, v]) - x)
+              for step, v, x in want["logits"])
+    if got != want["tokens"] or not err <= SERVE_RECORD_TOL:
+        fail(f"[ssm] (a): tokens {got} vs JAX record {want['tokens']}; "
+             f"sampled logits off by {err:.3g} (limit {SERVE_RECORD_TOL})")
+    say("ssm", f"(a) {rec['arch']} layers 0-{rec['layers']} float32 "
+               f"(recipe to the card {setup_s:.1f} s after the draw), "
+               f"B={rec['batch']} "
+               f"T={rec['seq']}: loss {loss!r} vs JAX record {rec['loss']!r} "
+               f"(rel {loss_rel:.3g}); sampled logits max abs err "
+               f"{logit_err:.3g}; prefill {rec['prompt']} and {rec['gen']} "
+               f"greedy tokens equal to JAX's cached forward, logits max abs "
+               f"err {err:.3g}")
+    del model
+    return {"loss": loss, "loss_rel_err": loss_rel,
+            "logit_max_abs_err": logit_err, "tokens": got,
+            "serve_logit_max_abs_err": err, "setup_s": setup_s}
+
+
+def _ssm_scan_check(model, arch):
+    """[ssm] (b): the scan of the model's first ssm layer with its weights
+    in float32, at T = SSM_SCAN["seq"] on SiLU'd normal inputs, against the
+    same recurrence in float64 step by step from the same float32 ``dt``,
+    B and C: y and the last state within SSM_SCAN["tol"] of their largest
+    magnitude. Times with CUDA events the float32 scan and the bf16 scan
+    at the forward's own shape (B=1, T=SSM_FULL["seq"], the layer's bf16
+    weights): the share of (b)'s forward that the scan takes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import ssm
+
+    seg = next(v for k, v in model.params().items()
+               if k.startswith("dec") and "p0_ssm" in v)
+    p = {k: t[0].float() for k, t in seg["p0_ssm"].items()}
+    di, ds = p["conv_w"].shape[0], arch.ssm_d_state
+    T = SSM_SCAN["seq"]
+    g = torch.Generator("cuda").manual_seed(7)
+    x = F.silu(torch.randn((1, T, di), generator=g, device="cuda"))
+    y, h = ssm._ssm_core(x, p, ds, None)
+    ms = cuda_ms(lambda: ssm._ssm_core(x, p, ds, None), 5, warmup=1)
+    dtr = p["dt_proj"].shape[0]
+    dt_in, Bc, Cc = torch.split((x @ p["x_proj"]).float(), [dtr, ds, ds],
+                                dim=-1)
+    dt = F.softplus(dt_in @ p["dt_proj"] + p["dt_bias"]).double()
+    A = -torch.exp(p["a_log"].double())
+    xd, Bd, Cd = x.double(), Bc.double(), Cc.double()
+    hd = torch.zeros((1, di, ds), dtype=torch.float64, device="cuda")
+    ys = []
+    for t in range(T):
+        hd = torch.exp(dt[:, t, :, None] * A) * hd \
+            + (dt[:, t, :, None] * Bd[:, t, None, :]) * xd[:, t, :, None]
+        ys.append(torch.einsum("bdn,bn->bd", hd, Cd[:, t]))
+    yd = torch.stack(ys, dim=1) + p["d_skip"].double() * xd
+    used = {"y": float((y.double() - yd).abs().max() / yd.abs().max()),
+            "state": float((h.double() - hd).abs().max() / hd.abs().max())}
+    del hd, ys, yd
+    p16 = {k: t[0] for k, t in seg["p0_ssm"].items()}
+    x16 = F.silu(torch.randn((1, SSM_FULL["seq"], di), generator=g,
+                             device="cuda")).to(torch.bfloat16)
+    forward_ms = cuda_ms(lambda: ssm._ssm_core(x16, p16, ds, None), 3,
+                         warmup=1)
+    del x16
+    if not max(used.values()) <= SSM_SCAN["tol"] or \
+            not bool(torch.isfinite(y).all()):
+        fail(f"[ssm] (b): the float32 scan at T={T} against the float64 "
+             f"recurrence: {used} of the largest magnitude (limit "
+             f"{SSM_SCAN['tol']})")
+    block = ssm.SCAN_BLOCK // (di * ds)
+    say("ssm", f"(b) the scan of one full-width layer (d_inner {di}, "
+               f"d_state {ds}) in float32 at T={T}: y and the last state "
+               f"within {used['y']:.3g} / {used['state']:.3g} of their "
+               f"largest magnitude of the float64 recurrence (limit "
+               f"{SSM_SCAN['tol']}); {ms:.3f} ms a call; blocks of {block} "
+               f"tokens at B=1 ({4 * block * di * ds / 2**20:.0f} MiB a "
+               f"tensor); at the forward's shape (T={SSM_FULL['seq']}, bf16) "
+               f"{forward_ms:.3f} ms a call")
+    return {"seq": T, "limit_used": used, "ms": ms, "block_tokens": block,
+            "forward_shape_ms": forward_ms}
+
+
+def _ssm_serve(model, arch, smi_line, base):
+    """[ssm] (b): ``generate`` of the (b) weights (bf16 cache) at
+    SSM_SERVE's size, the decode held to the cache-less forward over the
+    served sequence (``_decode_check``, MoE groups as served, positions
+    where the routing differs counted and left out of the yardstick; the
+    yardstick's forward takes attention and the scan in float64: the
+    decode scans one step at a time, the forward in blocks). The peak is
+    above ``base``, what the card held before the weights were drawn."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import moe, ssm
+    from repro_torch.models.model import Model
+
+    cfg = SSM_SERVE
+    B, P, G = cfg["batch"], cfg["prompt"], cfg["gen"]
+    served = Model(arch, layer_range=SSM_FULL["layer_range"],
+                   attn_impl="chunked", remat=False, device="meta")
+    served.load_state_dict(model.state_dict(), strict=True, assign=True)
+    dev = torch.device("cuda")
+    prompts = torch.randint(0, arch.vocab_size, (B, P),
+                            generator=torch.Generator(dev).manual_seed(
+                                cfg["seed"]), dtype=torch.int32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.LAUNCHES = 0
+    moe.RECORD = []
+    try:
+        tokens, stats = generate(served, prompts, G, keep_logits=True)
+    finally:
+        routed, moe.RECORD = moe.RECORD, None
+    peak = torch.cuda.max_memory_allocated() - base
+    if fa.LAUNCHES or tuple(tokens.shape) != (B, G):
+        fail(f"[ssm] (b) generate: tokens {tuple(tokens.shape)}, "
+             f"{fa.LAUNCHES} flash launches (the serve path takes the "
+             f"oracles)")
+    checked = _decode_check("[ssm] (b) generate", served, prompts, tokens,
+                            stats.pop("logits"),
+                            ((ref, "attention_chunked", _attention_float64),
+                             (ssm, "_scan", _scan_float64)), routed=routed)
+    say("ssm", f"(b) generate, B={B}, prompt {P}, {G} tokens, bf16 cache: "
+               f"prefill {stats['prefill_s'] * 1e3:.1f} ms, decode "
+               f"{stats['decode_tok_per_s']:.1f} tokens/s "
+               f"({stats['decode_s']:.3f} s); peak memory "
+               f"{peak / 2**30:.2f} GiB (weights included); {smi_line}")
+    say("ssm", f"(b) generate: {checked['text']}")
+    del served
+    return {"batch": B, "prompt": P, "gen": G,
+            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+            "decode_tok_per_s": stats["decode_tok_per_s"],
+            "peak_bytes": peak, **checked}
+
+
+def phase_ssm(smi_line, recipe=None):
+    """[ssm]: (a) jamba's first layer against the JAX record (its recipe
+    from ``recipe()``, ``_ssm_recipe_later``'s waiter, where given); (b)
+    layers 6-8 at full width scored with flash attention (held to the
+    plain forward and a float64 yardstick), one layer's scan against a
+    float64 recurrence, and served by ``generate``."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    leaves = recipe() if recipe is not None else None
+    if recipe is not None:
+        say("ssm", f"(a) waited {time.perf_counter() - t0:.1f} s for the "
+                   f"recipe drawn beside the earlier phases")
+    record = _ssm_record_check(leaves)
+    del leaves
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    model, batch, full = _lm_full(
+        "ssm", SSM_FULL, fa, "flash_attention", fa.flash_attention_plain,
+        "attention", _attention_float64,
+        lambda got, want, args: _flash_limit_used(got, want, args[2]),
+        f"{FLASH_TOL['bfloat16']} abs and rel; one bfloat16 rounding step",
+        "flash_attn")
+    del batch
+    torch.cuda.empty_cache()
+    arch = get_arch(SSM_FULL["arch"])
+    scan = _ssm_scan_check(model, arch)
+    torch.cuda.empty_cache()
+    served = _ssm_serve(model, arch, smi_line, base)
+    del model
+    torch.cuda.empty_cache()
+    return {"record": record, "full": full, "scan": scan, "serve": served,
+            "launches": {"flash_attn": full["launches"]}}
+
+
+def _encdec_record_check():
+    """[encdec] (a): whisper-small at full width and depth, bf16 recipe
+    weights and frames: the prefill of the record's first 16 tokens into a
+    bf16 cache, then 8 teacher-forced decode steps, every sampled logit
+    within max(6e-2 + 6e-2 |want|, spread) of JAX's cache-less forward."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models.model import Model
+
+    rec = ENCDEC_RECORD
+    arch = get_arch(rec["arch"])
+    model = Model(arch, attn_impl="chunked", remat=False, device="meta")
+    setup_s = _recipe_on_card(model, rec["seed"], torch.bfloat16)
+    tokens = torch.tensor([rec["tokens"]], dtype=torch.int32, device="cuda")
+    P, S = rec["prompt"], rec["prompt"] + rec["steps"]
+    cache = model.init_cache(1, S)
+    out, cache = model({"tokens": tokens[:, :P],
+                        "frames": _frames(arch, 1, rec["frames_seed"])},
+                       cache=cache,
+                       cache_pos=torch.zeros((), dtype=torch.int32,
+                                             device="cuda"))
+    outs = [out.float()]
+    for t in range(P, S):
+        out, cache = model({"tokens": tokens[:, t:t + 1]}, cache=cache,
+                           cache_pos=torch.tensor(t, dtype=torch.int32,
+                                                  device="cuda"))
+        outs.append(out.float())
+    logits = torch.cat(outs, dim=1)[0]
+    used, err = [], 0.0
+    for t, v, want in rec["logits"]:
+        diff = abs(float(logits[t, v]) - want)
+        err = max(err, diff)
+        used.append(diff / max(6e-2 + 6e-2 * abs(want), rec["spread"]))
+    prefill_used, decode_used = max(used[:5 * P]), max(used[5 * P:])
+    if not bool(torch.isfinite(logits).all()) or max(used) > 1.0:
+        fail(f"[encdec] (a): sampled logits off by up to {err:.3g}, "
+             f"{max(used):.3g} of max(6e-2 + 6e-2 |want|, the record's "
+             f"spread {rec['spread']:.3g}) (prefill {prefill_used:.3g}, "
+             f"teacher-forced decode {decode_used:.3g})")
+    say("encdec", f"(a) {rec['arch']} bf16, 12 + 12 layers, recipe to the "
+                  f"card {setup_s:.1f} s: prefill of {P} tokens and "
+                  f"{rec['steps']} teacher-forced decode steps, sampled "
+                  f"logits max abs err {err:.3g} from JAX's cache-less "
+                  f"forward ({prefill_used:.3g} / {decode_used:.3g} of "
+                  f"max(6e-2 + 6e-2 |want|, its spread "
+                  f"{rec['spread']:.3g}) at the prefill / the decode)")
+    del model, cache
+    return {"logit_max_abs_err": err, "prefill_limit_used": prefill_used,
+            "decode_limit_used": decode_used, "setup_s": setup_s}
+
+
+def _encdec_serve(smi_line):
+    """[encdec] (b): ``serve(whisper-small)`` at ENCDEC_SERVE's size (a
+    one-partition plan, K1 in it; no K2: the serve path takes the oracles):
+    prefill ms with the encoder, decode tokens/s, peak memory; the decode
+    held to the cache-less forward over the served sequence with the
+    served frames (``_decode_check``)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.core.accel import segred
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import Model
+
+    cfg = ENCDEC_SERVE
+    arch = get_arch(cfg["arch"])
+    B, P, G = cfg["batch"], cfg["prompt"], cfg["gen"]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    segred.LAUNCHES = fa.LAUNCHES = 0
+    lines = []
+    t0 = time.perf_counter()
+    tokens, stats = serve(arch, prompt_len=P, gen_len=G, batch=B,
+                          seed=cfg["seed"], keep_logits=True,
+                          log=lines.append)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {"segred": segred.LAUNCHES, "flash_attn": fa.LAUNCHES}
+    if launches["flash_attn"] or not launches["segred"] or \
+            tuple(tokens.shape) != (B, G) or \
+            not bool(((tokens >= 0) & (tokens < arch.vocab_size)).all()):
+        fail(f"[encdec] (b) serve: tokens {tuple(tokens.shape)}, launches "
+             f"{launches} (the plan launches segred; the serve path takes "
+             f"the oracles)")
+    dev = torch.device("cuda")
+    model = Model(arch, attn_impl="chunked", remat=False, device=dev,
+                  generator=torch.Generator(dev).manual_seed(cfg["seed"]))
+    gen = torch.Generator(dev).manual_seed(cfg["seed"] + 1)
+    prompts = torch.randint(0, arch.vocab_size, (B, P), generator=gen,
+                            dtype=torch.int32, device=dev)
+    frames = torch.randn((B, arch.num_frames, arch.d_model), generator=gen,
+                         device=dev).to(torch.bfloat16)
+    checked = _decode_check("[encdec] (b) serve", model, prompts, tokens,
+                            stats.pop("logits"),
+                            ((ref, "attention_chunked", _attention_float64),),
+                            frames=frames)
+    say("encdec", f"(b) serve {cfg['arch']}, bf16, B={B}, "
+                  f"{arch.num_frames} frames a row, prompt {P}, {G} tokens: "
+                  f"prefill (encoder included) "
+                  f"{stats['prefill_s'] * 1e3:.1f} ms, decode "
+                  f"{stats['decode_tok_per_s']:.1f} tokens/s "
+                  f"({stats['decode_s']:.3f} s), serve() {wall:.2f} s with "
+                  f"plan and weights, {stats['partitions']} partition; peak "
+                  f"memory {peak / 2**30:.2f} GiB; {smi_line}; launches "
+                  f"{launches}")
+    say("encdec", f"(b) serve: {checked['text']}")
+    del model
+    return {"batch": B, "prompt": P, "gen": G, "serve_wall_s": wall,
+            "prefill_s": stats["prefill_s"], "decode_s": stats["decode_s"],
+            "decode_tok_per_s": stats["decode_tok_per_s"],
+            "partitions": stats["partitions"], "peak_bytes": peak,
+            "launches": launches, "log": lines, **checked}
+
+
+def phase_encdec(smi_line):
+    """[encdec]: (a) whisper-small against the JAX record, teacher-forced;
+    (b) ``serve`` at full size, then the same weights scored with flash
+    attention (36 launches a forward), held to the plain forward and a
+    float64 yardstick."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    record = _encdec_record_check()
+    torch.cuda.empty_cache()
+    served = _encdec_serve(smi_line)
+    torch.cuda.empty_cache()
+    model, batch, full = _lm_full(
+        "encdec", ENCDEC_FULL, fa, "flash_attention", fa.flash_attention_plain,
+        "attention", _attention_float64,
+        lambda got, want, args: _flash_limit_used(got, want, args[2]),
+        f"{FLASH_TOL['bfloat16']} abs and rel; one bfloat16 rounding step",
+        "flash_attn")
+    del model, batch
+    torch.cuda.empty_cache()
+    return {"record": record, "serve": served, "full": full,
+            "launches": {"flash_attn": full["launches"],
+                         "segred": served["launches"]["segred"]}}
+
+
 def phase_profile_train():
     """One step of [train] (b) under torch.profiler: the same model (bf16
     weights drawn from the seed), one warm-up step, then one step timed
@@ -3682,6 +4444,7 @@ def main() -> None:
         service, service_launches = phase_service(smi_line, direct)
     with phase_wall("devices"):
         devices, devices_launches = phase_devices(smi_line)
+    ssm_recipe = _ssm_recipe_later()
     references.start()
     try:
         # scoring builds no autograd graph
@@ -3697,6 +4460,10 @@ def main() -> None:
         served = phase_serve(smi_line)
     with phase_wall("train"):
         trained = phase_train(smi_line)
+    with phase_wall("ssm"), torch.inference_mode():
+        ssm_run = phase_ssm(smi_line, ssm_recipe)
+    with phase_wall("encdec"), torch.inference_mode():
+        encdec = phase_encdec(smi_line)
     for row in fleet:
         row.pop("results")
     WALLS["run before --profile"] = time.perf_counter() - t_run
@@ -3732,7 +4499,7 @@ def main() -> None:
         "launches": launches + search_launches + fleet_launches
         + comap_launches + service_launches + devices_launches
         + sum(r["launches"]["segred"] for r in served["runs"])
-        + trained["launches"]["segred"],
+        + trained["launches"]["segred"] + encdec["launches"]["segred"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -3750,7 +4517,8 @@ def main() -> None:
         "name": "flash_attn", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attn.cu",
         "replaces": "src/repro/kernels/flash_attention.py:27",
-        "launches": dense["launches"],
+        "launches": dense["launches"] + ssm_run["launches"]["flash_attn"]
+        + encdec["launches"]["flash_attn"],
         "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
         "ms": dense_row["ms"], "plain_ms": dense_row["plain_ms"],
         "bound_ms": dense_row["bound_ms"], "bound_by": dense_row["bound_by"],
@@ -3767,6 +4535,7 @@ def main() -> None:
         "service": service, "devices": devices, "lm": lm,
         "walls_s": WALLS,
         "lm_dense": dense, "serve": served, "train": trained,
+        "ssm": ssm_run, "encdec": encdec,
         "profile": profiled, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

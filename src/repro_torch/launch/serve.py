@@ -12,15 +12,18 @@ Times end in ``torch.cuda.synchronize()`` on the card. Both run under
     python -m repro_torch.launch.serve --arch tinyllama-1.1b --reduced \\
         --prompt-len 32 --gen-len 32 --batch 4 [--device cpu]
 
-A plan of more than one partition (weight streaming) and the whisper
-encoder-decoder are not ported (ROADMAP Queue 1 items 15 and 13d).
+An encoder-decoder arch (``frontend == "audio_stub"``, whisper) takes
+its ``frames`` at the prefill, which runs the encoder and stores its
+output and the cross-attention K/V in the cache; decode steps read them.
+A plan of more than one partition (weight streaming) is not ported
+(ROADMAP Queue 1 item 15).
 """
 from __future__ import annotations
 
 import argparse
 import sys
 import time
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -40,11 +43,14 @@ def _sync(device: torch.device) -> None:
 
 @torch.inference_mode()
 def generate(model: Model, prompts: torch.Tensor, gen_len: int, *,
-             plan=None, mesh=None, cache_dtype=torch.bfloat16,
-             keep_logits: bool = False):
+             frames: Optional[torch.Tensor] = None, plan=None, mesh=None,
+             cache_dtype=torch.bfloat16, keep_logits: bool = False):
     """Greedy generation of ``gen_len`` tokens after each prompt row.
 
-    ``prompts``: (B, P) integer tokens on the model's device. Returns
+    ``prompts``: (B, P) integer tokens on the model's device; ``frames``:
+    (B, F, D) frame embeddings for the prefill of an encoder-decoder arch
+    (F the arch's ``num_frames``, the cache's length), None otherwise.
+    Returns
     (tokens (B, gen_len) int32, stats) with the serve loop's stats
     ``prefill_s``, ``decode_s`` and ``decode_tok_per_s``; with
     ``keep_logits`` also ``logits`` (B, gen_len, V) in float32, the logits
@@ -58,16 +64,26 @@ def generate(model: Model, prompts: torch.Tensor, gen_len: int, *,
     max_len = P + gen_len
     if mesh is None:
         mesh = make_host_mesh(device)
-    batch_keys = ("tokens", "mrope_positions") if arch.mrope else ("tokens",)
+    pre_keys, dec_keys = ["tokens"], ["tokens"]
+    if arch.frontend == "audio_stub":
+        if frames is None:
+            raise ValueError(f"{arch.name} encodes frames at the prefill: "
+                             f"pass frames (B, F, d_model)")
+        pre_keys.append("frames")
+    if arch.mrope:
+        pre_keys.append("mrope_positions")
+        dec_keys.append("mrope_positions")
     prefill = make_serve_step(model, plan, mesh, "prefill", max_len,
-                              batch_keys=batch_keys)
+                              batch_keys=tuple(pre_keys))
     decode = make_serve_step(model, plan, mesh, "decode", max_len,
-                             batch_keys=batch_keys)
+                             batch_keys=tuple(dec_keys))
     cache = model.init_cache(B, max_len, dtype=cache_dtype, device=device)
     # every decode position, made once on the device: no copy a step
     positions = torch.arange(P, max_len, dtype=torch.int32, device=device)
 
     batch_in: Dict[str, Any] = {"tokens": prompts.to(torch.int32)}
+    if frames is not None:
+        batch_in["frames"] = frames
     if arch.mrope:
         pos = torch.arange(P, dtype=torch.int32, device=device)
         pos = pos[None].repeat(B, 1)
@@ -116,7 +132,9 @@ def serve(arch: ArchConfig, *, prompt_len: int = 32, gen_len: int = 32,
     Returns (generated tokens (B, gen_len), stats dict).
 
     The model's weights are drawn from a ``torch.Generator`` seeded
-    ``seed`` and the prompts from one seeded ``seed + 1``. ``device=None``
+    ``seed`` and the prompts from one seeded ``seed + 1``, then, for an
+    encoder-decoder arch, the frames (B, ``num_frames`` or 16, D) standard
+    normal in bfloat16 from the same generator. ``device=None``
     is the card (no card: ``EngineUnavailable``); ``mesh`` defaults to the
     host mesh of that device. ``greedy`` is kept for the signature:
     decoding is greedy. ``keep_logits`` adds the logits each token was
@@ -136,8 +154,12 @@ def serve(arch: ArchConfig, *, prompt_len: int = 32, gen_len: int = 32,
     gen = torch.Generator(dev).manual_seed(seed + 1)
     prompts = torch.randint(0, arch.vocab_size, (batch, prompt_len),
                             generator=gen, dtype=torch.int32, device=dev)
-    tokens, stats = generate(model, prompts, gen_len, plan=plan, mesh=mesh,
-                             keep_logits=keep_logits)
+    frames = None
+    if arch.frontend == "audio_stub":
+        frames = torch.randn((batch, arch.num_frames or 16, arch.d_model),
+                             generator=gen, device=dev).to(torch.bfloat16)
+    tokens, stats = generate(model, prompts, gen_len, frames=frames,
+                             plan=plan, mesh=mesh, keep_logits=keep_logits)
     stats["partitions"] = len(plan.partitions)
     log(f"[serve] prefill {stats['prefill_s'] * 1e3:.0f} ms, decode "
         f"{stats['decode_tok_per_s']:.1f} tok/s, "

@@ -16,7 +16,8 @@ arrays), giving the port's ``optim.adamw.AdamWState`` keyed as the
 ``recipe_params(shapes, seed)`` draws numpy float32 values for every leaf of
 a parameter tree, one stated recipe per leaf, leaves in sorted
 key order from one ``numpy.random.default_rng(seed)``; ``recipe_batch``
-draws tokens and labels the same way. A program without JAX builds the same
+draws tokens and labels the same way, ``recipe_frames`` the audio
+encoder's frames. A program without JAX builds the same
 weights and batch as a JAX program given the same tree shapes and seeds.
 """
 from __future__ import annotations
@@ -86,6 +87,17 @@ def _draw(rng: np.random.Generator, name: str,
     shape = tuple(shape)
     if leaf == "bonus":
         return 0.5 * rng.standard_normal(shape, dtype=np.float32)
+    if leaf in ("conv_w", "conv_b"):
+        return 0.1 * rng.standard_normal(shape, dtype=np.float32)
+    if leaf == "a_log":
+        base = np.log(np.arange(1, shape[-1] + 1, dtype=np.float32))
+        return base + 0.1 * rng.standard_normal(shape, dtype=np.float32)
+    if leaf == "dt_bias":
+        # softplus^-1 of steps drawn log-uniformly from [1e-3, 1e-1]
+        step = np.exp(rng.uniform(math.log(1e-3), math.log(1e-1), shape))
+        return np.log(np.expm1(step)).astype(np.float32)
+    if leaf == "d_skip":
+        return 1.0 + 0.1 * rng.standard_normal(shape, dtype=np.float32)
     if len(shape) >= 2 and leaf not in ("ln_scale", "ln_bias", "decay") \
             and not leaf.startswith("mix_"):
         scale = np.float32(1.0 / math.sqrt(shape[-2]))
@@ -110,6 +122,15 @@ def recipe_batch(vocab_size: int, batch: int, seq: int,
             for name in ("tokens", "labels")}
 
 
+def recipe_frames(batch: int, frames: int, d_model: int,
+                  seed: int) -> np.ndarray:
+    """(batch, frames, d_model) float32 standard normal frame embeddings
+    for the audio encoder, drawn by ``numpy.random.default_rng(seed)``
+    (the model rounds them to bfloat16 as JAX's does)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((batch, frames, d_model), dtype=np.float32)
+
+
 def recipe_params(shapes: Mapping[str, Sequence[int]],
                   seed: int) -> Dict[str, np.ndarray]:
     """{dotted name: shape} -> {dotted name: float32 array}, drawn in sorted
@@ -117,6 +138,16 @@ def recipe_params(shapes: Mapping[str, Sequence[int]],
     (N a standard normal, U(a, b) uniform, rows = shape[-2]):
 
       bonus                      0.5 N
+      conv_w, conv_b             0.1 N     (the SSM's causal conv, JAX's
+                                            init scale)
+      a_log                      log(1..d_state) along the last axis
+                                 + 0.1 N   (A = -exp(a_log): JAX's spread
+                                            of decays, jittered)
+      dt_bias                    log(expm1(s)), s = exp(U(log 1e-3,
+                                 log 1e-1))  (softplus(dt_bias) = s: SSM
+                                            steps from 1e-3 to 0.1 before
+                                            the data's share)
+      d_skip                     1 + 0.1 N
       any other of >= 2 axes     N / sqrt(rows)   (weights, embedding)
       ln_scale                   1 + 0.1 N
       ln_bias                    0.1 N
@@ -124,11 +155,19 @@ def recipe_params(shapes: Mapping[str, Sequence[int]],
       decay                      U(-6, 1)  (multipliers exp(-exp(.)) from
                                             0.07 to 0.998)
     """
+    return dict(recipe_leaves(shapes, seed))
+
+
+def recipe_leaves(shapes: Mapping[str, Sequence[int]], seed: int):
+    """``recipe_params``' draws one leaf at a time: (name, float32 array)
+    in sorted name order, so that a caller converting a large tree holds
+    one drawn leaf at once."""
     rng = np.random.default_rng(seed)
-    return {name: _draw(rng, name, shapes[name]).astype(np.float32,
-                                                        copy=False)
-            for name in sorted(shapes)}
+    for name in sorted(shapes):
+        yield name, _draw(rng, name, shapes[name]).astype(np.float32,
+                                                          copy=False)
 
 
 __all__ = ["params_from_jax", "opt_state_from_jax", "recipe_params",
-           "recipe_batch", "flatten", "nest"]
+           "recipe_leaves", "recipe_batch", "recipe_frames", "flatten",
+           "nest"]

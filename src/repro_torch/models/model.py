@@ -1,5 +1,5 @@
-"""The LM zoo's model, ported for the dense attention models, the MoE
-models and RWKV6: the full-sequence forward and decode against a cache.
+"""The LM zoo's model, ported for every block kind of the ten registry
+archs: the full-sequence forward and decode against a cache.
 
 The PyTorch counterpart of the JAX package's ``models/model.py``. A model
 is a chain of *segments*; each segment is a homogeneous stack of
@@ -12,40 +12,54 @@ are verbatim copies.
 (``dec0.p0_rwkv_tmix.wr``), with JAX's shapes and dtypes, so weights carry
 across key for key (``models/convert.py``). ``forward(batch)`` and
 ``loss(batch)`` take JAX's batch dict (``tokens``, ``labels``, optional
-``loss_mask``) and return what JAX's ``forward(params, batch)`` and
-``loss(params, batch)`` return. The parameters are trainable: with grad
-mode on, ``forward`` and ``loss`` build an autograd graph (the train step,
+``loss_mask``, ``frames`` for the audio encoder) and return what JAX's
+``forward(params, batch)`` and ``loss(params, batch)`` return. The
+parameters are trainable: with grad mode on, ``forward`` and ``loss``
+build an autograd graph (the train step,
 ``launch/steps.py::make_train_step``), and with ``remat`` (JAX's default)
 each layer group runs under ``torch.utils.checkpoint``, as JAX's scan body
-runs under ``jax.checkpoint``: only the group's input is kept, and its
+runs under ``jax.checkpoint``: only the group's inputs are kept, and its
 activations are recomputed in the backward. Scoring and serving run under
 ``torch.inference_mode()`` (``launch/serve.py``), which builds nothing. The
 hand-written kernels have no backward (nor have their Pallas originals), so
 their wrappers raise under grad: a model that trains takes
 ``attn_impl="chunked"`` and ``use_flash=False``, as JAX's train loop does.
 
-Ported so far: the ``attn`` / ``ffn`` blocks (rotary self-attention and
-the feed-forward, as dense models such as tinyllama-1.1b chain them), the
-``moe`` block and the ``rwkv_tmix`` / ``rwkv_cmix`` blocks. With
+The blocks: ``attn`` / ``ffn`` (rotary self-attention and the
+feed-forward), ``moe``, ``rwkv_tmix`` / ``rwkv_cmix``, ``ssm`` (jamba's
+mamba mixer, ``models/ssm.py``) and whisper's encoder-decoder blocks
+(``enc_attn`` / ``enc_ffn`` over ``batch["frames"]``, no rotation, not
+causal; ``cross_attn`` from the decoder to the encoder's output). With
 ``use_flash=True`` attention runs in the hand-written flash-attention
 kernel (``csrc/flash_attn.cu``) and the WKV recurrence in the WKV kernel
 (``csrc/wkv6.cu``), as JAX's ``use_flash`` runs its Pallas kernels;
 ``attn_impl`` picks ``ref``, ``chunked`` or ``flash`` attention directly.
+The SSM scan is plain PyTorch, as JAX's is.
 
 Decode: ``init_cache`` builds JAX's cache tree, and ``forward(batch,
 cache=..., cache_pos=...)`` returns ``(logits, new_cache)`` in that tree.
 The cache is updated in place wherever the new value fits its buffer
 (shape and dtype): attention writes this step's K/V into the caller's
-buffers, and a carried RWKV state is copied into its buffer. Where it does
-not fit, the new leaf is a new tensor, as JAX's is: a float32 model's RWKV
-``shift`` after a prefill into the default bfloat16 cache keeps ``h``'s
-float32. JAX returns a new cache every call and its serve loop donates the
-old one, so in place changes nothing its callers see; a caller that wants
-an old cache again clones it first. Cache-carrying decode takes the
-oracles, as JAX's does: a tensor ``cache_pos`` sends flash attention to
-``ref.attention`` and a carried RWKV state to ``ref.rwkv6``. The ``ssm``
-(ROADMAP Queue 1 item 13c), ``cross_attn`` and ``enc_*`` (item 13d) blocks
-raise ``NotImplementedError``.
+buffers, a prefill's encoder output and cross K/V go into theirs, and a
+carried RWKV or SSM state is copied into its buffer. Where it does not
+fit, the new leaf is a new tensor, as JAX's is: a float32 model's RWKV
+``shift`` or SSM ``conv`` history after a prefill into the default
+bfloat16 cache keeps float32. JAX returns a new cache every call and its
+serve loop donates the old one, so in place changes nothing its callers
+see; a caller that wants an old cache again clones it first. Cache-carrying
+decode takes the oracles, as JAX's does: a tensor ``cache_pos`` sends
+flash attention to ``ref.attention`` and a carried RWKV state to
+``ref.rwkv6``.
+
+Whisper's decode (a batch without ``frames``) gives the decoder the cached
+encoder output with ``write_cross=False``, so cross-attention reads the
+K/V its prefill stored. JAX's forward gives the decoder no encoder output
+there, so its cross-attention attends to the decoded token alone and
+overwrites the stored K/V (ROADMAP Queue 3); the port follows
+``attend``'s documented contract instead. JAX's encoder casts ``frames``
+to bfloat16 and cannot then run float32 parameters (its scan's carry
+changes dtype); the port casts them to bfloat16 too, then to the
+parameters' dtype, so a float32 model runs its encoder in float32.
 """
 from __future__ import annotations
 
@@ -61,6 +75,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rwkv as R
+from repro_torch.models import ssm as S
 from repro_torch.runtime import resolve_device
 
 
@@ -133,33 +148,32 @@ def build_segments(arch: ArchConfig,
     return segs
 
 
+def _attention(gen, arch, device):
+    return A.init_attention(gen, arch.d_model, arch.num_heads,
+                            arch.num_kv_heads, arch.head_dim, arch.norm,
+                            device=device)
+
+
 _INIT = {
-    "attn": lambda gen, arch, device: A.init_attention(
-        gen, arch.d_model, arch.num_heads, arch.num_kv_heads, arch.head_dim,
-        arch.norm, device=device),
+    "attn": _attention,
+    "cross_attn": _attention,
+    "enc_attn": _attention,
     "ffn": lambda gen, arch, device: L.init_ffn(
+        gen, arch.d_model, arch.d_ff, arch.act, arch.norm, device=device),
+    # JAX's ``"gelu" if arch.act == "gelu" else arch.act`` is the arch's act
+    "enc_ffn": lambda gen, arch, device: L.init_ffn(
         gen, arch.d_model, arch.d_ff, arch.act, arch.norm, device=device),
     "moe": lambda gen, arch, device: M.init_moe(
         gen, arch.d_model, arch.d_ff, arch.num_experts, arch.act, arch.norm,
         device=device),
+    "ssm": lambda gen, arch, device: S.init_ssm(
+        gen, arch.d_model, arch.ssm_expand, arch.ssm_d_state, arch.ssm_conv,
+        arch.norm, device=device),
     "rwkv_tmix": lambda gen, arch, device: R.init_rwkv_tmix(
         gen, arch.d_model, arch.rwkv_head_size, arch.norm, device=device),
     "rwkv_cmix": lambda gen, arch, device: R.init_rwkv_cmix(
         gen, arch.d_model, arch.d_ff, arch.norm, device=device),
 }
-
-
-#: ROADMAP Queue 1 items of the block kinds still to port
-_ITEM = {"ssm": "13c", "cross_attn": "13d", "enc_attn": "13d",
-         "enc_ffn": "13d"}
-
-
-def _not_ported(kind: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"block kind {kind!r} is not ported yet: the port runs the attn, "
-        f"ffn, moe and RWKV6 blocks, with and without a decode cache "
-        f"(ROADMAP Queue 1 item {_ITEM.get(kind, '13')}: item 13c the ssm "
-        f"block, item 13d the cross_attn and enc_* blocks)")
 
 
 def _module(tree: Dict[str, Any]) -> nn.Module:
@@ -195,10 +209,6 @@ class Model(nn.Module):
         super().__init__()
         self.arch = arch
         self.segments = build_segments(arch, layer_range)
-        for seg in self.segments:
-            for kind in seg.pattern:
-                if kind not in _INIT:
-                    raise _not_ported(kind)
         self.include_embed = include_embed
         self.include_head = include_head
         self.use_flash = use_flash
@@ -290,11 +300,33 @@ class Model(nn.Module):
         mrope = batch.get("mrope_positions") if arch.mrope else None
 
         new_cache: Dict[str, Any] = {}
+        # ---------------- encoder (whisper) ----------------
+        enc_out, write_cross = None, False
         for seg in self.segments:
+            if not seg.encoder:
+                continue
+            if cache is not None and "frames" not in batch:
+                # decode: the encoder output and the cross K/V are cached
+                enc_out = cache.get("enc_out")
+                if enc_out is not None:
+                    new_cache["enc_out"] = enc_out
+                continue
+            dt = params[seg.name]["p0_enc_attn"]["wq"].dtype
+            h = batch["frames"].to(torch.bfloat16).to(dt)
+            enc_out = self._run_segment(params[seg.name], seg, h, None, None,
+                                        get_sf)[0]
+            write_cross = True
+            if cache is not None:
+                new_cache["enc_out"] = _fill(cache.get("enc_out"), enc_out)
+
+        # ---------------- decoder ----------------
+        for seg in self.segments:
+            if seg.encoder:
+                continue
             seg_cache = cache.get(seg.name) if cache is not None else None
             x, seg_new_cache = self._run_segment(
                 params[seg.name], seg, x, positions, mrope, get_sf,
-                seg_cache, cache_pos)
+                seg_cache, cache_pos, enc_out, write_cross)
             if cache is not None:
                 new_cache[seg.name] = seg_new_cache
         new_cache = new_cache if cache is not None else None
@@ -313,14 +345,19 @@ class Model(nn.Module):
         return logits, new_cache
 
     def _run_segment(self, seg_params, seg: Segment, x, positions, mrope,
-                     get_sf, seg_cache=None, cache_pos=None):
+                     get_sf, seg_cache=None, cache_pos=None, enc_out=None,
+                     write_cross=False):
         """Runs the segment's layers; returns (x, new segment cache), the
         cache None when ``seg_cache`` is None. Only blocks that have an
-        entry in ``seg_cache`` emit one (ffn and moe are stateless). With
-        ``remat``, grad mode on and no cache, each layer group runs under
-        ``torch.utils.checkpoint`` (JAX: ``jax.checkpoint`` of the scan
-        body). Without, the blocks run here one after another, so that a
-        block's input is freed as soon as the next block has its output."""
+        entry in ``seg_cache`` emit one (ffn and moe are stateless).
+        ``enc_out`` is what cross-attention reads (the encoder's output),
+        and ``write_cross`` says that it is new (a prefill: the cross K/V
+        are computed and stored) rather than cached (a decode step: the
+        stored K/V are read). With ``remat``, grad mode on and no cache,
+        each layer group runs under ``torch.utils.checkpoint`` (JAX:
+        ``jax.checkpoint`` of the scan body). Without, the blocks run here
+        one after another, so that a block's input is freed as soon as the
+        next block has its output."""
         remat = self.remat and seg_cache is None and torch.is_grad_enabled()
         new_leaves: Dict[str, Dict[str, List[torch.Tensor]]] = {}
         for i in range(seg.count):
@@ -328,7 +365,7 @@ class Model(nn.Module):
                  for pk, leaves in seg_params.items()}
             if remat:
                 x = checkpoint(self._layer_group, x, seg, p, positions,
-                               mrope, get_sf, use_reentrant=False)
+                               mrope, get_sf, enc_out, use_reentrant=False)
                 continue
             c = None
             if seg_cache is not None:
@@ -336,23 +373,24 @@ class Model(nn.Module):
                      for pk, leaves in seg_cache.items()}
             for j, kind in enumerate(seg.pattern):
                 x = self._block(j, kind, x, p, c, positions, mrope, get_sf,
-                                cache_pos, new_leaves)
+                                cache_pos, new_leaves, enc_out, write_cross)
         if seg_cache is None:
             return x, None
         return x, {pk: {name: _store(seg_cache[pk][name], layers)
                         for name, layers in leaves.items()}
                    for pk, leaves in new_leaves.items()}
 
-    def _layer_group(self, x, seg: Segment, seg_p, positions, mrope, get_sf):
+    def _layer_group(self, x, seg: Segment, seg_p, positions, mrope, get_sf,
+                     enc_out=None):
         """One layer group without a cache (the segment's pattern once,
         JAX's scan body): what ``remat`` recomputes in the backward."""
         for j, kind in enumerate(seg.pattern):
             x = self._block(j, kind, x, seg_p, None, positions, mrope,
-                            get_sf, None, {})
+                            get_sf, None, {}, enc_out, True)
         return x
 
     def _block(self, j, kind, x, seg_p, seg_c, positions, mrope, get_sf,
-               cache_pos, new_leaves):
+               cache_pos, new_leaves, enc_out=None, write_cross=False):
         """Block ``j`` of a layer group on ``x``; ``seg_p`` / ``seg_c`` are
         the group's slices of the segment's parameters and cache. A block
         with a cache entry appends its new cache leaves to
@@ -362,21 +400,35 @@ class Model(nn.Module):
         p = seg_p[pk]
         c = seg_c.get(pk) if seg_c is not None else None
         sfk = get_sf(kind)
+        heads = dict(num_heads=arch.num_heads,
+                     num_kv_heads=arch.num_kv_heads, head_dim=arch.head_dim,
+                     norm=arch.norm, attn_impl=self.attn_impl, shard_fn=sfk)
         if kind == "attn":
             x, nc = A.attend(
-                x, p, num_heads=arch.num_heads,
-                num_kv_heads=arch.num_kv_heads,
-                head_dim=arch.head_dim, norm=arch.norm, causal=True,
-                positions=positions, rope_theta=arch.rope_theta,
-                mrope_positions=mrope, cache=c, cache_pos=cache_pos,
-                attn_impl=self.attn_impl, shard_fn=sfk)
-        elif kind == "ffn":
+                x, p, causal=True, positions=positions,
+                rope_theta=arch.rope_theta, mrope_positions=mrope, cache=c,
+                cache_pos=cache_pos, **heads)
+        elif kind == "enc_attn":
+            x, nc = A.attend(x, p, causal=False, **heads)
+        elif kind == "cross_attn":
+            if enc_out is None:
+                raise ValueError(
+                    "cross_attn reads the encoder's output: run a layer "
+                    "range that starts at 0 with batch['frames'], or decode "
+                    "against a cache that holds 'enc_out'")
+            x, nc = A.attend(x, p, causal=False, kv_src=enc_out, cache=c,
+                             write_cross=write_cross, **heads)
+        elif kind in ("ffn", "enc_ffn"):
             x = L.apply_ffn(x, p, arch.act, arch.norm, shard_fn=sfk)
             nc = None
         elif kind == "moe":
             x = M.apply_moe(x, p, top_k=arch.experts_per_token,
                             act=arch.act, norm=arch.norm, shard_fn=sfk)
             nc = None
+        elif kind == "ssm":
+            x, nc = S.apply_ssm(x, p, d_state=arch.ssm_d_state,
+                                d_conv=arch.ssm_conv, norm=arch.norm,
+                                state=c, shard_fn=sfk)
         elif kind == "rwkv_tmix":
             # the sum goes on in float32 to the channel mix
             x, nc = R.apply_rwkv_tmix(
@@ -411,10 +463,13 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int,
                    dtype=torch.bfloat16, device=None) -> Dict[str, Any]:
-        """JAX's ``init_cache`` tree: per decoder segment, per block with a
-        state, zeros with a leading ``count`` axis; K/V and RWKV ``shift``
-        in ``dtype``, the RWKV ``wkv`` state in float32. ``device=None`` is
-        where the model's parameters are."""
+        """JAX's ``init_cache`` tree: the encoder output ``enc_out`` (B, F,
+        D) where the arch has an encoder, then per decoder segment, per
+        block with a state, zeros with a leading ``count`` axis: self K/V
+        (B, max_len, Hkv, dh), cross K/V (B, F, Hkv, dh), RWKV ``shift``
+        and SSM ``conv`` in ``dtype``; the RWKV ``wkv`` and SSM ``ssm``
+        states in float32. F is the arch's ``num_frames`` (1500 when 0).
+        ``device=None`` is where the model's parameters are."""
         arch = self.arch
         if device is None:
             device = next(self.parameters()).device
@@ -422,15 +477,29 @@ class Model(nn.Module):
         def zeros(shape, dt=dtype):
             return torch.zeros(shape, dtype=dt, device=device)
 
+        frames = arch.num_frames or 1500
         cache: Dict[str, Any] = {}
+        if arch.encoder_layers:
+            cache["enc_out"] = zeros((batch_size, frames, arch.d_model))
         for seg in self.segments:
+            if seg.encoder:
+                continue
             seg_cache = {}
             for j, kind in enumerate(seg.pattern):
                 pk = f"p{j}_{kind}"
-                if kind == "attn":
-                    shape = (seg.count, batch_size, max_len,
+                if kind in ("attn", "cross_attn"):
+                    shape = (seg.count, batch_size,
+                             max_len if kind == "attn" else frames,
                              arch.num_kv_heads, arch.head_dim)
                     seg_cache[pk] = {"k": zeros(shape), "v": zeros(shape)}
+                elif kind == "ssm":
+                    di = arch.ssm_expand * arch.d_model
+                    seg_cache[pk] = {
+                        "ssm": zeros((seg.count, batch_size, di,
+                                      arch.ssm_d_state), torch.float32),
+                        "conv": zeros((seg.count, batch_size,
+                                       arch.ssm_conv - 1, di)),
+                    }
                 elif kind == "rwkv_tmix":
                     hs = arch.rwkv_head_size
                     H = arch.d_model // hs
@@ -450,6 +519,15 @@ class Model(nn.Module):
         """The cache tree on the ``meta`` device: shapes and dtypes,
         nothing allocated."""
         return self.init_cache(batch_size, max_len, dtype, device="meta")
+
+
+def _fill(buf: Optional[torch.Tensor], new: torch.Tensor) -> torch.Tensor:
+    """``new`` as a cache leaf: copied into ``buf`` in place where it fits
+    (shape and dtype; returns buf), else ``new`` itself, as JAX stores the
+    encoder output whatever the cache's dtype."""
+    if buf is not None and buf.shape == new.shape and buf.dtype == new.dtype:
+        return buf.copy_(new)
+    return new
 
 
 def _store(buf: torch.Tensor, layers: List[torch.Tensor]) -> torch.Tensor:

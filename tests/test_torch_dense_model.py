@@ -213,16 +213,30 @@ def test_recipe_record_reproduces_on_the_port():
 
 
 def test_attend_refuses_what_is_not_ported():
+    """Every route of ``attend`` is ported (the name is kept from when
+    cross-attention raised): cross-attention over a ``kv_src`` of another
+    length, with and without a cross cache, and self-attention against a
+    decode cache, on the meta device."""
     arch = reduced(get_arch(NAME))
     p = A.init_attention(None, arch.d_model, arch.num_heads,
                          arch.num_kv_heads, arch.head_dim, arch.norm,
                          device="meta")
     x = torch.zeros(1, 4, arch.d_model, dtype=torch.bfloat16, device="meta")
+    src = torch.zeros(1, 7, arch.d_model, dtype=torch.bfloat16,
+                      device="meta")
     kw = dict(num_heads=arch.num_heads, num_kv_heads=arch.num_kv_heads,
               head_dim=arch.head_dim, norm=arch.norm)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 13d"):
-        A.attend(x, p, kv_src=x, **kw)
-    # a decode cache is ported: this step's K/V go into it at cache_pos
+    y, none = A.attend(x, p, kv_src=src, causal=False, **kw)
+    assert tuple(y.shape) == tuple(x.shape) and none is None
+    cross = {k: torch.zeros(1, 7, arch.num_kv_heads, arch.head_dim,
+                            dtype=torch.bfloat16, device="meta")
+             for k in ("k", "v")}
+    for write_cross in (True, False):
+        y, new = A.attend(x, p, kv_src=src, causal=False, cache=cross,
+                          write_cross=write_cross, **kw)
+        assert tuple(y.shape) == tuple(x.shape)
+        assert all(new[k] is cross[k] for k in cross)
+    # a decode cache: this step's K/V go into it at cache_pos
     cache = {"k": torch.zeros(1, 6, arch.num_kv_heads, arch.head_dim,
                               dtype=torch.bfloat16, device="meta")}
     cache["v"] = torch.zeros_like(cache["k"])

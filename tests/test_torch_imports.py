@@ -56,7 +56,8 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "repro_torch.models.layers", "repro_torch.models.rwkv",
                 "repro_torch.models.attention",
                 "repro_torch.models.model", "repro_torch.models.convert",
-                "repro_torch.models.moe", "repro_torch.launch",
+                "repro_torch.models.moe", "repro_torch.models.ssm",
+                "repro_torch.launch",
                 "repro_torch.launch.mesh", "repro_torch.launch.shapes",
                 "repro_torch.launch.train", "repro_torch.launch.steps",
                 "repro_torch.launch.serve",

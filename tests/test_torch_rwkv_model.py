@@ -225,15 +225,18 @@ def test_recipe_record_reproduces_on_the_port():
 
 
 def test_what_the_slice_leaves_out_raises():
-    """The moe block, the decode cache and ``init_cache`` are ported; the
-    ssm block (jamba) and whisper's cross_attn / enc_* blocks raise, naming
-    their ROADMAP items."""
-    with pytest.raises(NotImplementedError,
-                       match="'ssm'.*ROADMAP Queue 1 item 13c"):
-        Model(reduced(get_arch("jamba-1.5-large-398b")), device="meta")
-    with pytest.raises(NotImplementedError,
-                       match="'enc_attn'.*ROADMAP Queue 1 item 13d"):
-        Model(reduced(get_arch("whisper-small")), device="meta")
+    """Nothing is left out any more (the name is kept from when the ssm and
+    whisper blocks raised): ``Model`` builds reduced jamba (ssm) and
+    whisper (enc_attn, enc_ffn, cross_attn) with JAX's parameter and cache
+    trees, the moe block too, and a decode step on the meta device returns
+    the cache's tree."""
+    for name in ("jamba-1.5-large-398b", "whisper-small"):
+        model = Model(reduced(get_arch(name)), device="meta")
+        jm = JaxModel(r_reduced(r_arch(name)))
+        assert _port_leaves(model.state_dict()) == \
+            _port_leaves(jm.param_shapes())
+        assert _port_leaves(model.cache_shapes(2, 8)) == \
+            _port_leaves(jm.cache_shapes(2, 8))
     Model(reduced(get_arch("granite-moe-1b-a400m")), device="meta")
     model = Model(reduced(get_arch(NAME)), device="meta")
     cache = model.init_cache(1, 8)
