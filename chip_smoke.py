@@ -72,14 +72,16 @@ phase's failure is caught while the run goes on:
               alternating V5E_POD / V5E_2POD and objectives alternating
               throughput / latency, timed once a part with its ``results``:
               (a) rule-based, spmd / streaming, every arch at full width
-              cut to at most 12 decoder and 12 encoder layers,
+              cut to at most 8 decoder and 8 encoder layers (12 before
+              [partition] came),
               tinyllama-1.1b listed twice
               (coalesced once), every lane equal to the numpy engine (run
               after the timed runs, in worker processes), three lanes
               bitwise their per-problem torch run (each timed), segred
               once at [P, n]
               and once at [P x probes, n] a lockstep step; (b) SA, spmd,
-              64 chains x 342 sweeps, at (a)'s depth cut,
+              64 chains x 342 sweeps, cut to at most 12 decoder and 12
+              encoder layers,
               every lane bitwise its per-problem
               torch run and its incumbent the numpy engine's in float64,
               segred once a sweep a bucket; (c) brute force, megatron,
@@ -1367,7 +1369,7 @@ def phase_search(smi_line):
 #: engine and to its per-problem torch run
 FLEET = {
     "shape": "train_4k",
-    "rb": {"backend": "spmd", "exec_model": "streaming", "layers": 12,
+    "rb": {"backend": "spmd", "exec_model": "streaming", "layers": 8,
            "duplicate": "tinyllama-1.1b",
            "torch_loop": ("llama3.2-1b", "tinyllama-1.1b",
                           "jamba-1.5-large-398b"), "kw": {}},
@@ -4064,6 +4066,344 @@ def phase_encdec(smi_line):
                          "segred": served["launches"]["segred"]}}
 
 
+#: [partition] (a): ``serve`` of minitron-8b at full width and depth on its
+#: serve plan, then the same weights through the plan's partition steps
+PARTITION_SERVE = {"arch": "minitron-8b", "batch": 8, "prompt": 512,
+                   "gen": 64, "seed": 1, "partitions": 2}
+#: [partition] (b): tinyllama-1.1b trained through its train plan's
+#: partition steps beside the full-graph step ([train] (b)'s shape)
+PARTITION_TRAIN = {"arch": "tinyllama-1.1b", "batch": 8, "seq": 512,
+                   "lr": 1e-3, "steps": 3, "seed": 1, "partitions": 2}
+#: [partition] (a): logits within this share of max |logit|; (b): step 1's
+#: loss within this relative of the full graph's
+PARTITION_LOGIT_TOL, PARTITION_LOSS_TOL = 1e-3, 1e-4
+
+
+def _partition_model(model, part, **kw):
+    """``part``'s model (``Model(layer_range=(part.layer_start,
+    part.layer_end), include_embed=part.has_embed,
+    include_head=part.has_head)``), its parameters views of ``model``'s
+    (no second copy): each of its segments' stacked leaves sliced along
+    the ``count`` axis from the full segment that holds its first layer."""
+    from repro_torch.models import convert
+    from repro_torch.models.model import Model, build_segments
+    arch = model.arch
+    tree = convert.nest(model.state_dict())
+    full = [seg for seg in build_segments(arch) if not seg.encoder]
+    sub = {}
+    if part.has_embed or (part.has_head and arch.tie_embeddings):
+        sub["embed"] = tree["embed"]
+    for seg in build_segments(arch, (part.layer_start, part.layer_end)):
+        if seg.encoder:
+            sub[seg.name] = tree[seg.name]
+            continue
+        start = int(seg.name[3:])
+        src = [f for f in full if int(f.name[3:]) <= start][-1]
+        off = (start - int(src.name[3:])) // (max(src.layer_of) + 1)
+        sub[seg.name] = {pk: {k: t[off:off + seg.count]
+                              for k, t in leaves.items()}
+                         for pk, leaves in tree[src.name].items()}
+    if part.has_head:
+        sub["final_norm"] = tree["final_norm"]
+        if not arch.tie_embeddings:
+            sub["head"] = tree["head"]
+    pm = Model(arch, layer_range=(part.layer_start, part.layer_end),
+               include_embed=part.has_embed, include_head=part.has_head,
+               device="meta", **kw)
+    flat = convert.flatten(sub)
+    pm.load_state_dict(flat, strict=True, assign=True)
+    for k, t in pm.state_dict().items():
+        if t.data_ptr() != flat[k].data_ptr():
+            fail(f"[partition] {k} of partition {part.index} is a copy")
+    return pm
+
+
+def _partition_serve(smi_line):
+    """(a) ``serve`` on minitron-8b's 2-partition plan, then the same
+    weights (drawn again from the seed) through ``make_partition_serve_step``
+    over the plan's partitions, each partition model its own cache and its
+    tensors views of the full model's: a greedy prefill and ``gen - 1``
+    decode steps, fed ``serve``'s tokens (so that every position is
+    compared on the same context). Each picked token must be ``serve``'s
+    unless ``serve``'s top two logits lie within the bound there (counted),
+    and the logits within PARTITION_LOGIT_TOL of max |logit|."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.accel import segred
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.launch.steps import make_partition_serve_step
+    from repro_torch.launch.train import plan_for_mesh
+    from repro_torch.models.model import Model
+
+    cfg = PARTITION_SERVE
+    arch = get_arch(cfg["arch"])
+    B, P, G = cfg["batch"], cfg["prompt"], cfg["gen"]
+    dev = torch.device("cuda")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    segred.LAUNCHES = fa.LAUNCHES = rwkv6_scan.LAUNCHES = 0
+    lines = []
+    t0 = time.perf_counter()
+    tokens, stats = serve(arch, prompt_len=P, gen_len=G, batch=B,
+                          seed=cfg["seed"], keep_logits=True,
+                          log=lines.append)
+    wall = time.perf_counter() - t0
+    serve_peak = torch.cuda.max_memory_allocated() - base
+    want_logits = stats.pop("logits")
+    launches = {"segred": segred.LAUNCHES, "flash_attn": fa.LAUNCHES,
+                "wkv6": rwkv6_scan.LAUNCHES}
+    if stats["partitions"] != cfg["partitions"] or \
+            tuple(tokens.shape) != (B, G) or launches["flash_attn"] or \
+            launches["wkv6"] or not launches["segred"]:
+        fail(f"[partition] (a) serve {cfg['arch']}: {stats['partitions']} "
+             f"partitions (want {cfg['partitions']}), tokens "
+             f"{tuple(tokens.shape)}, launches {launches} (the plan "
+             f"launches segred; the serve path takes the oracles)")
+
+    # the same plan and weights, through the partition steps
+    torch.cuda.reset_peak_memory_stats()
+    segred.LAUNCHES = fa.LAUNCHES = rwkv6_scan.LAUNCHES = 0
+    mesh = make_host_mesh(dev)
+    plan = plan_for_mesh(arch, ShapeSpec("serve_prefill", P, B, "prefill"),
+                         mesh, objective="throughput")
+    model = Model(arch, attn_impl="chunked", remat=False, device=dev,
+                  generator=torch.Generator(dev).manual_seed(cfg["seed"]))
+    gen = torch.Generator(dev).manual_seed(cfg["seed"] + 1)
+    prompts = torch.randint(0, arch.vocab_size, (B, P), generator=gen,
+                            dtype=torch.int32, device=dev)
+    parts = plan.partitions
+    models = [_partition_model(model, p, attn_impl="chunked", remat=False)
+              for p in parts]
+    steps = [[make_partition_serve_step(m, plan, mesh, mode, P + G, pi)
+              for pi, m in enumerate(models)]
+             for mode in ("prefill", "decode")]
+    caches = [m.init_cache(B, P + G) for m in models]
+    positions = torch.arange(P, P + G, dtype=torch.int32, device=dev)
+    err = torch.zeros((), device=dev)
+    scale = want_logits.abs().max()
+    picked = []
+    decode_s = 0.0
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = {"tokens": prompts}
+        for i in range(G):
+            if i == 1:
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t0
+                t1 = time.perf_counter()
+            h = x
+            for pi in range(len(parts)):
+                if i == 0:
+                    h, caches[pi] = steps[0][pi](caches[pi], h)
+                else:
+                    h, caches[pi] = steps[1][pi](caches[pi], h,
+                                                 positions[i - 1])
+            last = h[:, -1].float()
+            err = torch.maximum(err, (last - want_logits[:, i]).abs().max())
+            picked.append(torch.argmax(last, dim=-1).to(torch.int32))
+            # serve's token: every position is compared on serve's context
+            x = {"tokens": tokens[:, i:i + 1]}
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t1
+    chain_peak = torch.cuda.max_memory_allocated() - base
+    chain_launches = {"segred": segred.LAUNCHES, "flash_attn": fa.LAUNCHES,
+                      "wkv6": rwkv6_scan.LAUNCHES}
+    picked = torch.stack(picked, 1)
+    bound = PARTITION_LOGIT_TOL * float(scale)
+    top2 = torch.topk(want_logits, 2, dim=-1).values
+    near = (top2[..., 0] - top2[..., 1]) <= bound
+    differ = picked != tokens
+    max_err = float(err)
+    if max_err > bound or bool((differ & ~near).any()) or \
+            chain_launches["flash_attn"] or chain_launches["wkv6"] or \
+            not chain_launches["segred"]:
+        fail(f"[partition] (a) chain: logits {max_err} from serve's (limit "
+             f"{bound}); {int(differ.sum())} tokens differ, "
+             f"{int((differ & ~near).sum())} where serve's top two logits "
+             f"are farther apart than the limit; launches {chain_launches}")
+    out = {"arch": cfg["arch"], "layers": arch.num_layers, "batch": B,
+           "prompt": P, "gen": G, "partitions": stats["partitions"],
+           "plan": [[p.layer_start, p.layer_end, p.has_embed, p.has_head]
+                    for p in parts],
+           "serve_wall_s": wall, "prefill_s": stats["prefill_s"],
+           "decode_s": stats["decode_s"],
+           "decode_tok_per_s": stats["decode_tok_per_s"],
+           "serve_peak_bytes": serve_peak,
+           "chain_prefill_s": prefill_s, "chain_decode_s": decode_s,
+           "chain_decode_tok_per_s": B * (G - 1) / decode_s,
+           "chain_peak_bytes": chain_peak,
+           "max_logit_err": max_err, "logit_bound": bound,
+           "tokens_differ": int(differ.sum()),
+           "near_ties": int(near.sum()),
+           "bitwise_tokens": not bool(differ.any()),
+           "launches": {k: launches[k] + chain_launches[k]
+                        for k in launches},
+           "log": lines, "device": smi_line}
+    say("partition", f"(a) {cfg['arch']} full width and depth "
+                     f"({arch.num_layers} layers), bf16, B={B}, prompt {P}, "
+                     f"{G} tokens on its {stats['partitions']}-partition "
+                     f"plan {out['plan']}: serve() prefill "
+                     f"{stats['prefill_s'] * 1e3:.1f} ms, decode "
+                     f"{stats['decode_tok_per_s']:.1f} tokens/s, peak "
+                     f"{serve_peak / 2**30:.2f} GiB above the phase's start, "
+                     f"{wall:.2f} s with plan and weights; the partition "
+                     f"chain prefill {prefill_s * 1e3:.1f} ms, decode "
+                     f"{out['chain_decode_tok_per_s']:.1f} tokens/s, peak "
+                     f"{chain_peak / 2**30:.2f} GiB; logits within "
+                     f"{max_err:.3g} of serve's (limit {bound:.3g}), "
+                     f"{out['tokens_differ']} of {B * G} tokens differ "
+                     f"({out['near_ties']} positions with serve's top two "
+                     f"within the limit); launches {out['launches']}; "
+                     f"{smi_line}")
+    del model, models, steps, caches, want_logits
+    return out
+
+
+def _partition_train(smi_line):
+    """(b) tinyllama-1.1b on its train plan ([train] (b)'s shape): 3
+    full-graph ``make_train_step`` steps, then, from the same weights and
+    ``DataPipeline`` batches, 3 chained partition steps: the forward of
+    partitions 0..P-2 stashing each boundary, then the steps P-1..0, each
+    taking the cotangent of the next (the partition models' tensors views
+    of the full model's, AdamW on each partition's own state). Step 1's
+    loss within PARTITION_LOSS_TOL of the full graph's, every loss finite;
+    later steps are reported, not held (AdamW clips each partition by its
+    own gradients' norm, as JAX's partition steps do)."""
+    import math
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.core.accel import segred
+    from repro_torch.data.pipeline import DataPipeline
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rwkv6_scan
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import (make_partition_train_step,
+                                          make_train_step)
+    from repro_torch.launch.train import plan_for_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg = PARTITION_TRAIN
+    arch = get_arch(cfg["arch"])
+    dev = torch.device("cuda")
+    mesh = make_host_mesh(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    segred.LAUNCHES = fa.LAUNCHES = rwkv6_scan.LAUNCHES = 0
+    plan = plan_for_mesh(arch, ShapeSpec("train_custom", cfg["seq"],
+                                         cfg["batch"], "train"), mesh)
+    parts = plan.partitions
+    if len(parts) != cfg["partitions"]:
+        fail(f"[partition] (b) {cfg['arch']}: a train plan of {len(parts)} "
+             f"partitions (want {cfg['partitions']})")
+
+    def fresh():
+        return Model(arch, attn_impl="chunked", device=dev,
+                     generator=torch.Generator(dev).manual_seed(cfg["seed"]))
+
+    def batches():
+        pipe = DataPipeline(arch.vocab_size, cfg["seq"], cfg["batch"],
+                            seed=cfg["seed"], device=dev)
+        return [pipe.next_batch() for _ in range(cfg["steps"])]
+
+    model = fresh()
+    step = make_train_step(model, plan, mesh, lr=cfg["lr"])
+    state = adamw_init(dict(model.named_parameters()))
+    full_losses, full_s = [], []
+    for batch in batches():
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        full_losses.append(float(metrics["loss"]))
+        full_s.append(time.perf_counter() - t0)
+    del model, step, state
+    torch.cuda.empty_cache()
+
+    model = fresh()
+    models = [_partition_model(model, p, attn_impl="chunked") for p in parts]
+    steps = [make_partition_train_step(m, plan, mesh, pi, lr=cfg["lr"])
+             for pi, m in enumerate(models)]
+    states = [adamw_init(dict(m.named_parameters())) for m in models]
+    n = len(parts)
+    chain_losses, chain_s = [], []
+    for batch in batches():
+        t0 = time.perf_counter()
+        x, bounds = {"tokens": batch["tokens"]}, []
+        with torch.no_grad():
+            for pi in range(n - 1):
+                x = models[pi](x if pi == 0 else {"tokens": None},
+                               embedded=None if pi == 0 else x)[0]
+                bounds.append(x)
+        states[-1], cot, metrics = steps[-1](states[-1], bounds[-1],
+                                             batch["labels"])
+        for pi in range(n - 2, -1, -1):
+            if pi == 0:
+                states[0], _ = steps[0](states[0], batch, cot)
+            else:
+                states[pi], _, cot = steps[pi](states[pi], bounds[pi - 1],
+                                               cot)
+        chain_losses.append(float(metrics["loss"]))
+        chain_s.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {"segred": segred.LAUNCHES, "flash_attn": fa.LAUNCHES,
+                "wkv6": rwkv6_scan.LAUNCHES}
+    rel = abs(chain_losses[0] - full_losses[0]) / abs(full_losses[0])
+    if not all(math.isfinite(v) for v in full_losses + chain_losses) or \
+            rel > PARTITION_LOSS_TOL or launches["flash_attn"] or \
+            launches["wkv6"] or not launches["segred"]:
+        fail(f"[partition] (b): chained losses {chain_losses} vs the full "
+             f"graph's {full_losses} (step 1 within {PARTITION_LOSS_TOL} "
+             f"relative: {rel:.3g}; all finite); launches {launches}")
+    out = {"arch": cfg["arch"], "layers": arch.num_layers,
+           "batch": cfg["batch"], "seq": cfg["seq"], "lr": cfg["lr"],
+           "plan": [[p.layer_start, p.layer_end, p.has_embed, p.has_head]
+                    for p in parts],
+           "full_losses": full_losses, "chain_losses": chain_losses,
+           "step1_rel": rel, "full_step_s": full_s, "chain_step_s": chain_s,
+           "median_chain_ms": _median(chain_s[1:]) * 1e3,
+           "median_full_ms": _median(full_s[1:]) * 1e3,
+           "peak_bytes": peak, "launches": launches, "device": smi_line}
+    say("partition", f"(b) {cfg['arch']} full width and depth "
+                     f"({arch.num_layers} layers), bf16, B={cfg['batch']} "
+                     f"T={cfg['seq']}, lr {cfg['lr']}, on its {n}-partition "
+                     f"train plan {out['plan']}: chained losses "
+                     f"{', '.join(f'{v:.6f}' for v in chain_losses)} vs the "
+                     f"full graph's "
+                     f"{', '.join(f'{v:.6f}' for v in full_losses)} (step 1 "
+                     f"relative {rel:.3g}, limit {PARTITION_LOSS_TOL}; later "
+                     f"steps not held); median chained step "
+                     f"{out['median_chain_ms']:.1f} ms (full graph "
+                     f"{out['median_full_ms']:.1f} ms), peak "
+                     f"{peak / 2**30:.2f} GiB above the phase's start; "
+                     f"launches {launches}; {smi_line}")
+    del model, models, steps, states
+    return out
+
+
+def phase_partition(smi_line):
+    """[partition]: multi-partition plans through the port's entry points:
+    (a) ``serve`` of minitron-8b on its 2-partition plan and the same
+    weights through the partition serve steps; (b) tinyllama-1.1b through
+    the partition train steps of its 2-partition train plan beside the
+    full-graph step."""
+    import torch
+    torch.cuda.empty_cache()
+    served = _partition_serve(smi_line)
+    torch.cuda.empty_cache()
+    trained = _partition_train(smi_line)
+    torch.cuda.empty_cache()
+    return {"serve": served, "train": trained,
+            "launches": {"segred": served["launches"]["segred"]
+                         + trained["launches"]["segred"]}}
+
+
 def phase_profile_train():
     """One step of [train] (b) under torch.profiler: the same model (bf16
     weights drawn from the seed), one warm-up step, then one step timed
@@ -4464,6 +4804,8 @@ def main() -> None:
         ssm_run = phase_ssm(smi_line, ssm_recipe)
     with phase_wall("encdec"), torch.inference_mode():
         encdec = phase_encdec(smi_line)
+    with phase_wall("partition"):
+        partition = phase_partition(smi_line)
     for row in fleet:
         row.pop("results")
     WALLS["run before --profile"] = time.perf_counter() - t_run
@@ -4499,7 +4841,8 @@ def main() -> None:
         "launches": launches + search_launches + fleet_launches
         + comap_launches + service_launches + devices_launches
         + sum(r["launches"]["segred"] for r in served["runs"])
-        + trained["launches"]["segred"] + encdec["launches"]["segred"],
+        + trained["launches"]["segred"] + encdec["launches"]["segred"]
+        + partition["launches"]["segred"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4535,7 +4878,7 @@ def main() -> None:
         "service": service, "devices": devices, "lm": lm,
         "walls_s": WALLS,
         "lm_dense": dense, "serve": served, "train": trained,
-        "ssm": ssm_run, "encdec": encdec,
+        "ssm": ssm_run, "encdec": encdec, "partition": partition,
         "profile": profiled, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

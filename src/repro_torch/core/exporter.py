@@ -4,8 +4,8 @@ The paper's exporter writes the optimised folding factors back into the
 backend's customised IR; ours legalises V = {C, s^I, s^O, k} onto the physical
 mesh and emits a ``ShardingPlan`` — per-partition, per-node-kind mesh-axis
 assignments — which is what ``launch/{dryrun,train,serve}.py`` and the model
-zoo consume. (The JAX package also emits ``PartitionSpec`` constructors from
-the plan; the port does not yet, see ``_pspec``.)
+zoo consume, plus ``PartitionSpec`` constructors (the port's own,
+``core/partition_spec.py``).
 
 Axis-assignment preference: batch folds take ("pod","data"), row folds take
 "data", col folds take "model"; conflicts fall back to any disjoint
@@ -27,17 +27,15 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from repro_torch.core.hdgraph import HDGraph, Variables, partitions_from_cuts
+from repro_torch.core.partition_spec import PartitionSpec
 from repro_torch.core.platform import Platform
 
 
 def _pspec():
-    """The PyTorch port emits no ``PartitionSpec``s: its launch layer reads
-    the ``KindPlan`` axes directly (ROADMAP Queue 1, item 15, "Launch").
-    The spec-emitting methods below raise until that item lands; the plan
-    data itself (partitions, kinds, axes) is complete."""
-    raise NotImplementedError(
-        "ShardingPlan spec methods are not ported yet (ROADMAP Queue 1, "
-        "item 15); read the KindPlan axes (kind_plan(), dp_axes()) instead")
+    """The ``PartitionSpec`` constructor of the spec-emitting methods below:
+    the port's own (a tuple of entries, as JAX's compares), which needs no
+    jax."""
+    return PartitionSpec
 
 
 @dataclass(frozen=True)

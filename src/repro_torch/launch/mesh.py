@@ -1,14 +1,16 @@
 """Meshes of the port.
 
 A ``Mesh`` is what the planner and the launch layer read of a mesh: its
-axis names and an array of devices whose shape is the mesh's shape (JAX's
-``mesh.axis_names`` and ``mesh.devices.shape``). The port runs on one
+axis names, an array of devices whose shape is the mesh's shape and the
+size of each axis by name (JAX's ``mesh.axis_names``,
+``mesh.devices.shape`` and ``mesh.shape``). The port runs on one
 card: ``make_host_mesh`` is the 1 x 1 mesh of that card, and
 ``make_production_mesh`` the TPU pod's shape with no devices behind it,
 for planning only.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -26,6 +28,11 @@ class Mesh:
     @property
     def size(self) -> int:
         return int(self.devices.size)
+
+    @property
+    def shape(self) -> "OrderedDict[str, int]":
+        """Axis name to size, in axis order (JAX's ``mesh.shape``)."""
+        return OrderedDict(zip(self.axis_names, self.devices.shape))
 
 
 def _grid(shape, fill) -> np.ndarray:

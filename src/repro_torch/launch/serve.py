@@ -1,8 +1,8 @@
 """Batched serving loop: prefill, then greedy decode against a KV/state
 cache, on one device.
 
-``serve`` builds the model from a seed (weights drawn as ``Model`` draws
-them), plans the cell (``plan_for_mesh``), draws ``batch`` prompts and
+``serve`` plans the cell (``plan_for_mesh``), builds the model from a
+seed (weights drawn as ``Model`` draws them), draws ``batch`` prompts and
 runs ``generate``: one prefill step that writes the prompts into the cache
 and picks each row's first token, then ``gen_len - 1`` decode steps of one
 token each. Every token is the argmax of its logits (the first on ties).
@@ -15,8 +15,11 @@ Times end in ``torch.cuda.synchronize()`` on the card. Both run under
 An encoder-decoder arch (``frontend == "audio_stub"``, whisper) takes
 its ``frames`` at the prefill, which runs the encoder and stores its
 output and the cross-attention K/V in the cache; decode steps read them.
-A plan of more than one partition (weight streaming) is not ported
-(ROADMAP Queue 1 item 15).
+Whatever the plan's partitions, ``serve`` runs partition 0's full-graph
+steps over the whole model, as the JAX package's ``serve`` does, and
+reports the count in ``stats["partitions"]``; a plan's partitions one
+after another (weight streaming) are ``launch/steps.py``'s
+``make_partition_serve_step``.
 """
 from __future__ import annotations
 
@@ -138,18 +141,16 @@ def serve(arch: ArchConfig, *, prompt_len: int = 32, gen_len: int = 32,
     is the card (no card: ``EngineUnavailable``); ``mesh`` defaults to the
     host mesh of that device. ``greedy`` is kept for the signature:
     decoding is greedy. ``keep_logits`` adds the logits each token was
-    picked from to the stats (``generate``)."""
+    picked from to the stats (``generate``). The plan is made before the
+    model is built; ``stats["partitions"]`` is its count of partitions,
+    and the steps are partition 0's over the whole model whatever it
+    is."""
     mesh = mesh or make_host_mesh(device)
     dev = resolve_device(mesh.devices.flat[0])
-    model = Model(arch, attn_impl="chunked", remat=False, device=dev,
-                  generator=torch.Generator(dev).manual_seed(seed))
     shape_p = ShapeSpec("serve_prefill", prompt_len, batch, "prefill")
     plan = plan_for_mesh(arch, shape_p, mesh, objective="throughput")
-    if len(plan.partitions) != 1:
-        raise NotImplementedError(
-            f"a plan of {len(plan.partitions)} partitions (weight "
-            f"streaming) is not ported yet (ROADMAP Queue 1 item 15: "
-            f"make_partition_serve_step)")
+    model = Model(arch, attn_impl="chunked", remat=False, device=dev,
+                  generator=torch.Generator(dev).manual_seed(seed))
 
     gen = torch.Generator(dev).manual_seed(seed + 1)
     prompts = torch.randint(0, arch.vocab_size, (batch, prompt_len),

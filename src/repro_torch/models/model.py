@@ -36,6 +36,11 @@ kernel (``csrc/flash_attn.cu``) and the WKV recurrence in the WKV kernel
 ``attn_impl`` picks ``ref``, ``chunked`` or ``flash`` attention directly.
 The SSM scan is plain PyTorch, as JAX's is.
 
+Sharding: ``param_specs(plan, partition)`` and ``cache_specs(plan,
+partition)`` give JAX's ``PartitionSpec`` trees of the parameters and
+the cache from a plan (``core/partition_spec.py``); on one device each
+places the whole tensor.
+
 Decode: ``init_cache`` builds JAX's cache tree, and ``forward(batch,
 cache=..., cache_pos=...)`` returns ``(logits, new_cache)`` in that tree.
 The cache is updated in place wherever the new value fits its buffer
@@ -71,6 +76,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.exporter import _axes
+from repro_torch.core.partition_spec import PartitionSpec
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
@@ -256,6 +263,30 @@ class Model(nn.Module):
         """The parameter tree on the ``meta`` device: shapes and dtypes,
         nothing allocated."""
         return self.init_params(None, "meta")
+
+    def param_specs(self, plan, partition: int = 0) -> Dict[str, Any]:
+        """``PartitionSpec`` tree mirroring ``param_shapes()``, from a
+        ``ShardingPlan``'s kind plans for ``partition``: each leaf's role
+        (``layers.PARAM_ROLES``) on its block kind's axes, the stacked
+        ``count`` axis never sharded."""
+        def spec(path: Tuple[str, ...], leaf):
+            top = path[0]
+            name = path[-1]
+            if top == "embed":
+                return plan.spec_for_role("table", leaf.ndim, "embed",
+                                          partition)
+            if top == "head":
+                return plan.spec_for_role("head", leaf.ndim, "head",
+                                          partition)
+            if top == "final_norm":
+                return plan.spec_for_role("replicate", leaf.ndim, "norm",
+                                          partition)
+            kind = path[1].split("_", 1)[1]          # "p{j}_{kind}"
+            role = L.PARAM_ROLES[kind].get(name, "replicate")
+            return plan.spec_for_role(role, leaf.ndim, kind, partition,
+                                      stacked=1)
+
+        return _tree_map_with_path(spec, self.param_shapes())
 
     def params(self) -> Dict[str, Any]:
         """The parameters this module holds, as the JAX tree."""
@@ -520,6 +551,57 @@ class Model(nn.Module):
         nothing allocated."""
         return self.init_cache(batch_size, max_len, dtype, device="meta")
 
+    def cache_specs(self, plan, partition: int = 0) -> Dict[str, Any]:
+        """``PartitionSpec`` tree mirroring ``init_cache``'s: K/V (count, B,
+        length, Hkv, dh) with batch, rows (self-attention's length only)
+        and the KV heads on the attention kind's axes (the heads only
+        where its cols fold divides them); RWKV and SSM states on their
+        kind's batch and cols axes; ``enc_out`` on the encoder's batch
+        axes."""
+        arch = self.arch
+        P = PartitionSpec
+        cache: Dict[str, Any] = {}
+        akp = plan.kind_plan("attn", partition)
+        kv_heads_ax = _axes(akp.cols_axes) if (
+            akp.s_out <= arch.num_kv_heads
+            and arch.num_kv_heads % max(akp.s_out, 1) == 0) else None
+        batch_ax = _axes(akp.batch_axes)
+        rows_ax = _axes(akp.rows_axes)
+        if arch.encoder_layers:
+            ekp = plan.kind_plan("enc_attn", partition)
+            cache["enc_out"] = P(_axes(ekp.batch_axes), None, None)
+        for seg in self.segments:
+            if seg.encoder:
+                continue
+            seg_specs = {}
+            for j, kind in enumerate(seg.pattern):
+                pk = f"p{j}_{kind}"
+                if kind in ("attn", "cross_attn"):
+                    kv = P(None, batch_ax, rows_ax if kind == "attn" else None,
+                           kv_heads_ax, None)
+                    seg_specs[pk] = {"k": kv, "v": kv}
+                elif kind == "ssm":
+                    skp = plan.kind_plan("ssm", partition)
+                    seg_specs[pk] = {
+                        "ssm": P(None, _axes(skp.batch_axes),
+                                 _axes(skp.cols_axes), None),
+                        "conv": P(None, _axes(skp.batch_axes), None,
+                                  _axes(skp.cols_axes)),
+                    }
+                elif kind == "rwkv_tmix":
+                    rkp = plan.kind_plan("rwkv_tmix", partition)
+                    seg_specs[pk] = {
+                        "shift": P(None, _axes(rkp.batch_axes), None),
+                        "wkv": P(None, _axes(rkp.batch_axes),
+                                 _axes(rkp.cols_axes), None, None),
+                    }
+                elif kind == "rwkv_cmix":
+                    rkp = plan.kind_plan("rwkv_cmix", partition)
+                    seg_specs[pk] = {"shift": P(None, _axes(rkp.batch_axes),
+                                                None)}
+            cache[seg.name] = seg_specs
+        return cache
+
 
 def _fill(buf: Optional[torch.Tensor], new: torch.Tensor) -> torch.Tensor:
     """``new`` as a cache leaf: copied into ``buf`` in place where it fits
@@ -548,6 +630,14 @@ def _store(buf: torch.Tensor, layers: List[torch.Tensor]) -> torch.Tensor:
 
 def build_model(arch: ArchConfig, **kw) -> Model:
     return Model(arch, **kw)
+
+
+def _tree_map_with_path(fn, tree, path=()):
+    """``fn(path, leaf)`` over nested dicts, ``path`` the tuple of keys."""
+    if isinstance(tree, dict):
+        return {k: _tree_map_with_path(fn, v, path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree)
 
 
 __all__ = ["Model", "Segment", "build_model", "build_segments"]

@@ -216,6 +216,79 @@ def lm_record(arch, *, layers, batch, seq, seed):
                        lm_sample_points(batch, seq, arch.vocab_size)]}
 
 
+def partition_tree(tree, arch, part):
+    """The parameter tree of ``part``'s model (``Model(arch,
+    layer_range=(part.layer_start, part.layer_end),
+    include_embed=part.has_embed, include_head=part.has_head)``) cut from
+    the full model's nested ``tree`` (JAX arrays, numpy arrays or
+    tensors): each of its segments' stacked leaves sliced along axis 0
+    from the full segment that holds its first layer (the JAX package's
+    dry run builds partition models so; its tests hold no weights)."""
+    from repro_torch.models.model import build_segments
+    full = [s for s in build_segments(arch) if not s.encoder]
+    out = {}
+    if part.has_embed or (part.has_head and arch.tie_embeddings):
+        out["embed"] = tree["embed"]
+    for seg in build_segments(arch, (part.layer_start, part.layer_end)):
+        if seg.encoder:
+            out[seg.name] = tree[seg.name]
+            continue
+        start = int(seg.name[3:])
+        src = [s for s in full if int(s.name[3:]) <= start][-1]
+        off = (start - int(src.name[3:])) // (max(src.layer_of) + 1)
+        out[seg.name] = {pk: {k: a[off:off + seg.count]
+                              for k, a in leaves.items()}
+                         for pk, leaves in tree[src.name].items()}
+    if part.has_head:
+        out["final_norm"] = tree["final_norm"]
+        if not arch.tie_embeddings:
+            out["head"] = tree["head"]
+    return out
+
+
+def port_partition_model(model, part, **kw):
+    """``part``'s model of the port, its parameters views of ``model``'s
+    (no copy: ``load_state_dict(assign=True)``), ``kw`` for ``Model``."""
+    from repro_torch.models import convert
+    from repro_torch.models.model import Model
+    tree = convert.nest(model.state_dict())
+    pm = Model(model.arch, layer_range=(part.layer_start, part.layer_end),
+               include_embed=part.has_embed, include_head=part.has_head,
+               device="meta", **kw)
+    pm.load_state_dict(convert.flatten(partition_tree(tree, model.arch,
+                                                      part)),
+                       strict=True, assign=True)
+    return pm
+
+
+def cut_plans(arch_name, cuts, mode="train", seq=16, batch=2,
+              num_layers=None):
+    """The plan of reduced ``arch_name`` (cut to ``num_layers`` when
+    given) whose partitions the ``cuts`` (edges after these graph nodes)
+    make, built twice from the same ``Variables`` (the spmd backend's
+    initial folds): by the JAX package's ``export_plan`` and by the
+    port's, on ``V5E_POD``. (ref, port)."""
+    import repro.configs as rc
+    import repro.core.backends as rbk
+    import repro.core.exporter as rex
+    import repro.core.graph_builder as rgb
+    import repro.core.platform as rpl
+    import repro_torch.configs as tc
+    import repro_torch.core.backends as tbk
+    import repro_torch.core.exporter as tex
+    import repro_torch.core.graph_builder as tgb
+    import repro_torch.core.platform as tpl
+    out = []
+    for cfg, bk, ex, gb, pl in ((rc, rbk, rex, rgb, rpl),
+                                (tc, tbk, tex, tgb, tpl)):
+        arch = cfg.reduced(cfg.get_arch(arch_name)) if num_layers is None \
+            else cfg.reduced(cfg.get_arch(arch_name), num_layers=num_layers)
+        graph = gb.build_hdgraph(arch, cfg.ShapeSpec("t", seq, batch, mode))
+        v = bk.BACKENDS["spmd"].initial(graph).with_cuts(tuple(cuts))
+        out.append(ex.export_plan(graph, v, pl.V5E_POD))
+    return tuple(out)
+
+
 if __name__ == "__main__":
     # The records in chip_smoke.py (LM_RECORD, DENSE_RECORD), made on the
     # CPU with:

@@ -50,7 +50,7 @@ VERBATIM = (
 #: copies that change one named part; the text from the marker on (or up
 #: to it) must still equal the original's
 PARTIAL = {
-    # the port emits no jax PartitionSpecs: _pspec raises
+    # _pspec gives the port's own PartitionSpec, not jax's
     "core/exporter.py": ("from", "@dataclass(frozen=True)\nclass KindPlan"),
     # optimise() takes engine="torch" and a device
     "core/optimizers/rule_based.py": ("upto", "def optimise("),
@@ -302,11 +302,16 @@ def test_default_platform_agrees():
 
 
 def test_exporter_plans_agree_and_spec_methods_are_not_ported():
-    """``export_plan`` is the original's; the PartitionSpec constructors
-    (which need jax) raise until the launch layer is ported."""
+    """``export_plan`` is the original's, and so are the plan's four
+    PartitionSpec constructors (``data_spec``, ``act_spec``,
+    ``kv_cache_spec``, ``spec_for_role`` of every role with ``stacked`` 0
+    and 1), compared as tuples on every partition. The name is
+    historical: the port's spec methods once raised, and now emit the
+    port's own ``PartitionSpec``."""
     ref, port = problem_pair("qwen2-vl-72b", "prefill")
     from repro.core.exporter import export_plan as r_export
     from repro_torch.core.exporter import export_plan as t_export
+    from repro_torch.core.partition_spec import PartitionSpec
     for v in random_designs(ref, 5, seed=4):
         a = r_export(ref.graph, v, ref.platform, "streaming")
         b = t_export(port.graph, to_port(v), port.platform, "streaming")
@@ -316,8 +321,19 @@ def test_exporter_plans_agree_and_spec_methods_are_not_ported():
                 (k, dataclasses.astuple(kp)) for k, kp in p.kinds.items()))
             for p in b.partitions]
         assert b.dp_axes() == a.dp_axes()
-        with pytest.raises(NotImplementedError, match="item 15"):
-            b.data_spec()
+        for pi in range(len(b.partitions)):
+            for what in ("data_spec", "act_spec", "kv_cache_spec"):
+                got = getattr(b, what)(pi)
+                assert isinstance(got, PartitionSpec)
+                assert tuple(got) == tuple(getattr(a, what)(pi)), (what, pi)
+            for kind in sorted({k for p in b.partitions for k in p.kinds}):
+                for role in ("col", "row", "expert", "table", "head",
+                             "replicate"):
+                    for stacked in (0, 1):
+                        assert tuple(b.spec_for_role(
+                            role, 3, kind, pi, stacked)) == tuple(
+                            a.spec_for_role(role, 3, kind, pi, stacked)), \
+                            (kind, role, stacked, pi)
 
 
 # ----------------------------------------------------------------------
