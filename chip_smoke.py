@@ -72,8 +72,9 @@ phase's failure is caught while the run goes on:
               alternating V5E_POD / V5E_2POD and objectives alternating
               throughput / latency, timed once a part with its ``results``:
               (a) rule-based, spmd / streaming, every arch at full width
-              cut to at most 8 decoder and 8 encoder layers (12 before
-              [partition] came),
+              cut to at most 6 decoder and 6 encoder layers (a hybrid
+              keeps whole interleave periods; 8 before [dryrun] came, 12
+              before [partition]),
               tinyllama-1.1b listed twice
               (coalesced once), every lane equal to the numpy engine (run
               after the timed runs, in worker processes), three lanes
@@ -221,7 +222,24 @@ phase's failure is caught while the run goes on:
               launches a forward (12 encoder, 12 causal, 12 cross), held
               as phase 11's (b)
 
-  16. profile (only with ``--profile``) the first mapping request, each
+  16. dryrun  the dry run (``repro_torch.launch.dryrun``): (a) its CLI on
+              tinyllama-1.1b x train_4k as a subprocess (started before
+              [partition], whose host is idle), the plan searched
+              on the card through K1 and the sharded step counted on fake
+              tensors over the 16 x 16 mesh of a fake process group; exit
+              0, the record read back, no partition error; (b) beside it,
+              the dry run's count of [train] (b)'s step on the 1 x 1 card
+              mesh: its predicted peak within 10 % of the peak [train] (b)
+              measured, and [train] (b)'s median step not below the
+              count's H100 roofline bound; (c) the dry run's step at
+              [train] (b)'s shape (full-width tinyllama-1.1b, bf16, B=8,
+              T=512, ZeRO-1; batch over "data", columns over "model") on a
+              1 x 1 NCCL ``DeviceMesh`` (DTensors), 4 steps bitwise the
+              host mesh's plain step and timed beside it, and its count on
+              fake tensors over the same mesh: the predicted peak within
+              10 % of the DTensor run's measured one, the median step not
+              below the count's bound
+  17. profile (only with ``--profile``) the first mapping request, each
               [search] request (SA: spmd/latency), [fleet] (b) and (c),
               one forward of each LM, one 16-token ``generate`` of each
               [serve] arch, one step of [train] (b)
@@ -1369,7 +1387,7 @@ def phase_search(smi_line):
 #: engine and to its per-problem torch run
 FLEET = {
     "shape": "train_4k",
-    "rb": {"backend": "spmd", "exec_model": "streaming", "layers": 8,
+    "rb": {"backend": "spmd", "exec_model": "streaming", "layers": 6,
            "duplicate": "tinyllama-1.1b",
            "torch_loop": ("llama3.2-1b", "tinyllama-1.1b",
                           "jamba-1.5-large-398b"), "kw": {}},
@@ -4404,6 +4422,297 @@ def phase_partition(smi_line):
                          + trained["launches"]["segred"]}}
 
 
+#: [dryrun] (a): ``python -m repro_torch.launch.dryrun`` on this cell (its
+#: plan searched on the card through K1, its sharded step run on fake
+#: tensors over the 16 x 16 mesh of a fake process group), as a subprocess
+#: started before [partition]; (b): the dry run's count of [train] (b)'s step on
+#: the 1 x 1 card mesh, its predicted peak within DRYRUN_PEAK_TOL of the
+#: peak [train] (b) measures and its roofline bound not above [train]
+#: (b)'s median step; (c): the dry run's step at [train] (b)'s shape
+#: (TRAIN_FULL: full-width tinyllama-1.1b, bf16, B=8, T=512) on a plan
+#: that shards the batch over "data" and the blocks' columns over "model",
+#: on a 1 x 1 NCCL ``DeviceMesh`` (DTensors): DRYRUN_NCCL_STEPS steps
+#: bitwise the same step on the host mesh (plain tensors) and timed beside
+#: it, and the dry run's count of that DTensor step on fake tensors over
+#: the same DeviceMesh, its predicted peak within DRYRUN_PEAK_TOL of the
+#: DTensor run's measured one and its bound not above the DTensor step
+DRYRUN_CELL = ("tinyllama-1.1b", "train_4k")
+DRYRUN_PEAK_TOL = 0.10
+DRYRUN_NCCL_STEPS = 4
+
+
+def _dryrun_cli_check(proc, out_dir, wall, smi_line):
+    """(a): the subprocess's exit code and its record read back."""
+    arch, shape = DRYRUN_CELL
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        fail(f"[dryrun] (a) python -m repro_torch.launch.dryrun --arch {arch} "
+             f"--shape {shape}: exit {proc.returncode}\n{err[-3000:]}")
+    rec = json.loads((Path(out_dir) / f"{arch}__{shape}__1pod.json")
+                     .read_text())
+    bad = [c for c in rec["cells"] if "error" in c]
+    samo = rec["samo"]
+    if bad or not samo["device"].startswith("cuda") or \
+            not samo["segred_launches"] or not rec["aggregate"]["flops"] > 0:
+        fail(f"[dryrun] (a): errors {[c['error'] for c in bad]}, planned on "
+             f"{samo['device']} with {samo['segred_launches']} segred "
+             f"launches, per-device FLOPs {rec['aggregate']['flops']}")
+    rl, agg = rec["roofline"], rec["aggregate"]
+    say("dryrun", f"(a) {arch} x {shape} on the fake 16 x 16 mesh: exit 0, "
+                  f"{rec['partitions']} partition(s), planned on the card "
+                  f"({samo['segred_launches']} segred launches, "
+                  f"{samo['optimise_seconds']} s); per device "
+                  f"{agg['flops']:.4e} FLOP, {agg['bytes']:.4e} bytes, "
+                  f"{agg['collective_bytes']:.4e} collective bytes "
+                  f"{rec['cells'][0].get('collectives')}, peak "
+                  f"{agg['peak_memory_gib']:.3f} GiB; H100 roofline bound "
+                  f"{rl['step_time_bound_s']:.4f} s ({rl['bottleneck']}); "
+                  f"the cell's host time {rec['host_seconds']} s, "
+                  f"{wall:.1f} s from the command's start to its record "
+                  f"read back; torch {rec['torch']}; {smi_line}")
+    return {"record": {k: rec[k] for k in ("partitions", "samo", "aggregate",
+                                           "roofline", "host_seconds")},
+            "wall_s": wall, "segred": samo["segred_launches"]}
+
+
+def _dryrun_predict(trained, smi_line):
+    """(b): [train] (b)'s step counted on fake tensors on the 1 x 1 card
+    mesh (train()'s plan, its full-graph step) against its measurement."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import plan_for_mesh
+
+    full = trained["full"]
+    arch = get_arch(full["arch"])
+    shape = ShapeSpec("train_custom", full["seq"], full["batch"], "train")
+    mesh = make_host_mesh("cuda")
+    plan = plan_for_mesh(arch, shape, mesh)
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        step, args, model = dryrun.build_partition(
+            arch, shape, plan, mesh, 0, zero1=True,
+            streaming=False)
+        counts = dryrun.count_step(step, args, model)
+        del step, args, model
+    wall = time.perf_counter() - t0
+    pred, meas = counts["peak_memory_gib"], full["peak_gib"]
+    bound_s = max(counts["flops"] / dryrun.PEAK_FLOPS,
+                  counts["bytes"] / dryrun.HBM_BW)
+    gap = abs(pred - meas) / meas
+    if gap > DRYRUN_PEAK_TOL:
+        fail(f"[dryrun] (b): predicted peak {pred:.3f} GiB against [train] "
+             f"(b)'s measured {meas:.3f} GiB: {gap:.3%} apart (limit "
+             f"{DRYRUN_PEAK_TOL:.0%})")
+    if full["median_step_ms"] < bound_s * 1e3:
+        fail(f"[dryrun] (b): [train] (b)'s median step "
+             f"{full['median_step_ms']:.1f} ms is below the predicted bound "
+             f"{bound_s * 1e3:.1f} ms")
+    say("dryrun", f"(b) [train] (b)'s step ({full['arch']}, B={full['batch']} "
+                  f"T={full['seq']}, {arch.num_layers} layers) counted on fake "
+                  f"cuda tensors in {wall:.1f} s ({counts['ops']} ops): peak "
+                  f"{pred:.3f} GiB predicted, {meas:.3f} GiB measured "
+                  f"({gap:.2%} apart, limit {DRYRUN_PEAK_TOL:.0%}); "
+                  f"{counts['flops']:.4e} FLOP, {counts['bytes']:.4e} bytes: "
+                  f"bound {bound_s * 1e3:.1f} ms "
+                  f"({'bytes' if counts['bytes'] / dryrun.HBM_BW > counts['flops'] / dryrun.PEAK_FLOPS else 'operations'}) "
+                  f"against the measured median step "
+                  f"{full['median_step_ms']:.1f} ms; {smi_line}")
+    return {"predicted_peak_gib": pred, "measured_peak_gib": meas,
+            "gap": gap, "flops": counts["flops"], "bytes": counts["bytes"],
+            "bound_ms": bound_s * 1e3,
+            "measured_step_ms": full["median_step_ms"],
+            "memory": counts["memory"], "count_s": wall}
+
+
+def _dryrun_nccl_plan(arch):
+    """(c)'s plan on the 1 x 1 card mesh: the batch over "data", the
+    blocks' and the head's columns over "model"."""
+    from repro_torch.core.exporter import KindPlan, PartitionPlan, \
+        ShardingPlan
+    from repro_torch.core.platform import Platform
+    D, M = ("data",), ("model",)
+    kinds = {"embed": (D, (), ()), "attn": (D, (), M), "ffn": (D, (), M),
+             "norm": (D, (), ()), "head": (D, (), M)}
+    return ShardingPlan(arch.name, "train", "train", "spmd", Platform(
+        name="card", mesh_axes=(("data", 1), ("model", 1))), [PartitionPlan(
+            0, [], {k: KindPlan(k, 1, 1, 1, r, c, b)
+                    for k, (b, r, c) in kinds.items()},
+            0, arch.num_layers, True, True, True)])
+
+
+def _dryrun_nccl(smi_line):
+    """(c): the dry run's step at [train] (b)'s shape on a 1 x 1 NCCL
+    mesh (DTensors) against the host mesh's (plain tensors), and its count
+    on fake tensors over the same mesh against its measured peak."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as port_mesh
+
+    cfg = TRAIN_FULL
+    arch = get_arch(cfg["arch"])
+    shape = ShapeSpec("train_custom", cfg["seq"], cfg["batch"], "train")
+    plan = _dryrun_nccl_plan(arch)
+    g = torch.Generator().manual_seed(cfg["seed"] + 1)
+    batch = {k: torch.randint(0, arch.vocab_size, (cfg["batch"], cfg["seq"]),
+                              generator=g, dtype=torch.int32).cuda()
+             for k in ("tokens", "labels")}
+
+    def build(mesh):
+        return dryrun.build_partition(arch, shape, plan, mesh, 0,
+                                      zero1=True, streaming=False)
+
+    def run(mesh):
+        """DRYRUN_NCCL_STEPS steps: the losses, the median step after the
+        first (ms), the peak above the start (GiB) and every parameter and
+        AdamW leaf whole."""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        torch.manual_seed(cfg["seed"])
+        step, args, model = build(mesh)
+        state = args[0]
+        x = step.layout.put_batch(batch) if step.layout else batch
+        del args
+        losses, times = [], []
+        for _ in range(DRYRUN_NCCL_STEPS):
+            t0 = time.perf_counter()
+            state, metrics = step(state, x)
+            losses.append(float(metrics["loss"]))
+            times.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+
+        def whole(t):
+            t = t.detach()
+            return t.full_tensor() if hasattr(t, "full_tensor") else t
+        leaves = {f"param {k}": whole(p) for k, p in model.named_parameters()}
+        for field in ("master", "m", "v"):
+            leaves.update({f"{field} {k}": whole(t) for k, t in
+                           getattr(state, field).items()})
+        return {"losses": losses, "step_ms": _median(times[1:]) * 1e3,
+                "peak_gib": peak, "leaves": leaves}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_nccl_") as d:
+        port_mesh.init_process_group(1, 0, device="cuda",
+                                     init_method=f"file://{d}/init")
+        try:
+            mesh = port_mesh.make_mesh((1, 1), ("data", "model"))
+            t1 = time.perf_counter()
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                step, args, model = build(mesh)
+                counts = dryrun.count_step(step, args, model)
+                del step, args, model
+            count_s = time.perf_counter() - t1
+            got = run(mesh)
+        finally:
+            dist.destroy_process_group()
+    want = run(port_mesh.make_host_mesh("cuda"))
+    wall = time.perf_counter() - t0
+    differ = [k for k, w in want["leaves"].items()
+              if not torch.equal(got["leaves"][k], w)]
+    if got["losses"] != want["losses"] or differ:
+        fail(f"[dryrun] (c): the 1 x 1 NCCL mesh's step differs from the host "
+             f"mesh's: losses {got['losses']} vs {want['losses']}, leaves "
+             f"{differ[:5]}")
+    pred, meas = counts["peak_memory_gib"], got["peak_gib"]
+    gap = abs(pred - meas) / meas
+    flops_s = counts["flops"] / dryrun.PEAK_FLOPS
+    bytes_s = counts["bytes"] / dryrun.HBM_BW
+    bound_ms = max(flops_s, bytes_s) * 1e3
+    if gap > DRYRUN_PEAK_TOL:
+        fail(f"[dryrun] (c): the DTensor step's predicted peak {pred:.3f} GiB "
+             f"against its measured {meas:.3f} GiB: {gap:.3%} apart (limit "
+             f"{DRYRUN_PEAK_TOL:.0%})")
+    if got["step_ms"] < bound_ms:
+        fail(f"[dryrun] (c): the DTensor step's median {got['step_ms']:.1f} ms "
+             f"is below its predicted bound {bound_ms:.1f} ms")
+    say("dryrun", f"(c) {cfg['arch']} full width ({arch.num_layers} layers), "
+                  f"bf16, B={cfg['batch']} T={cfg['seq']}, "
+                  f"{DRYRUN_NCCL_STEPS} train steps (ZeRO-1) on a 1 x 1 NCCL "
+                  f"DeviceMesh: losses {got['losses']} and all "
+                  f"{len(want['leaves'])} parameter and AdamW leaves bitwise "
+                  f"the host mesh's; median step {got['step_ms']:.1f} ms "
+                  f"(DTensors) against {want['step_ms']:.1f} ms (plain "
+                  f"tensors); counted on fake tensors over the same mesh in "
+                  f"{count_s:.1f} s ({counts['ops']} ops): peak {pred:.3f} GiB "
+                  f"predicted, {meas:.3f} GiB measured ({gap:.2%} apart, "
+                  f"limit {DRYRUN_PEAK_TOL:.0%}; the plain run's "
+                  f"{want['peak_gib']:.3f} GiB); {counts['flops']:.4e} FLOP, "
+                  f"{counts['bytes']:.4e} bytes: bound {bound_ms:.1f} ms "
+                  f"({'bytes' if bytes_s > flops_s else 'operations'}); "
+                  f"{wall:.1f} s; {smi_line}")
+    return {"losses": got["losses"], "leaves": len(want["leaves"]),
+            "bitwise": True, "dtensor_step_ms": got["step_ms"],
+            "plain_step_ms": want["step_ms"], "predicted_peak_gib": pred,
+            "measured_peak_gib": meas, "plain_peak_gib": want["peak_gib"],
+            "gap": gap, "bound_ms": bound_ms, "count_s": count_s,
+            "wall_s": wall}
+
+
+def dryrun_cli_start():
+    """Starts (a)'s subprocess, so that it runs beside [partition] (the
+    host's cores are idle there); ``phase_dryrun`` reads it. It is killed
+    and its output removed when this process exits."""
+    import atexit
+    import os
+    import shutil
+    import tempfile
+    arch, shape = DRYRUN_CELL
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(SRC), os.environ.get("PYTHONPATH")])))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--out", out_dir], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    atexit.register(stop)
+    return {"proc": proc, "out_dir": out_dir, "t0": time.perf_counter(),
+            "stop": stop}
+
+
+def phase_dryrun(smi_line, trained, cli):
+    """[dryrun]: (b) the count of [train] (b)'s step and (c) the 1 x 1
+    NCCL mesh here, then (a), the dry run's CLI started before
+    [partition] (``dryrun_cli_start``), read back."""
+    from repro_torch.core.accel import segred
+    from repro_torch.kernels import flash_attention, rwkv6_scan
+    segred.LAUNCHES = flash_attention.LAUNCHES = rwkv6_scan.LAUNCHES = 0
+    try:
+        predicted = _dryrun_predict(trained, smi_line)
+        nccl = _dryrun_nccl(smi_line)
+        done = _dryrun_cli_check(cli["proc"], cli["out_dir"],
+                                 time.perf_counter() - cli["t0"], smi_line)
+    finally:
+        cli["stop"]()
+    launches = {"segred": segred.LAUNCHES, "wkv6": rwkv6_scan.LAUNCHES,
+                "flash_attn": flash_attention.LAUNCHES}
+    if not launches["segred"] or launches["wkv6"] or launches["flash_attn"]:
+        fail(f"[dryrun]: launches here {launches}; (b)'s plan launches "
+             f"segred, and no step here takes a flash or WKV kernel")
+    say("dryrun", f"launches in [dryrun]: segred {launches['segred']} here "
+                  f"((b)'s plan) and {done['segred']} in (a)'s process, wkv6 "
+                  f"{launches['wkv6']}, flash_attn {launches['flash_attn']}")
+    return {"cli": done, "predicted": predicted, "nccl": nccl,
+            "launches": {"segred": launches["segred"] + done["segred"]}}
+
+
 def phase_profile_train():
     """One step of [train] (b) under torch.profiler: the same model (bf16
     weights drawn from the seed), one warm-up step, then one step timed
@@ -4804,8 +5113,11 @@ def main() -> None:
         ssm_run = phase_ssm(smi_line, ssm_recipe)
     with phase_wall("encdec"), torch.inference_mode():
         encdec = phase_encdec(smi_line)
+    dry_cli = dryrun_cli_start()
     with phase_wall("partition"):
         partition = phase_partition(smi_line)
+    with phase_wall("dryrun"):
+        dry = phase_dryrun(smi_line, trained, dry_cli)
     for row in fleet:
         row.pop("results")
     WALLS["run before --profile"] = time.perf_counter() - t_run
@@ -4842,7 +5154,7 @@ def main() -> None:
         + comap_launches + service_launches + devices_launches
         + sum(r["launches"]["segred"] for r in served["runs"])
         + trained["launches"]["segred"] + encdec["launches"]["segred"]
-        + partition["launches"]["segred"],
+        + partition["launches"]["segred"] + dry["launches"]["segred"],
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
@@ -4879,6 +5191,7 @@ def main() -> None:
         "walls_s": WALLS,
         "lm_dense": dense, "serve": served, "train": trained,
         "ssm": ssm_run, "encdec": encdec, "partition": partition,
+        "dryrun": dry,
         "profile": profiled, "kernels": kernels}, indent=1))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

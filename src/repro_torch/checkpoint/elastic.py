@@ -1,10 +1,12 @@
 """Elastic re-meshing: restore any checkpoint onto any mesh factorisation.
 
 Checkpoints store unsharded logical arrays, so elasticity reduces to
-placing each leaf with the new plan's sharding. The port runs on one
-device: on a mesh of one, ``reshard_tree`` moves every leaf onto that
-device; a larger mesh raises, as ``launch/steps.py::shard_fns_from_plan``
-does (ROADMAP Queue 1 item 15: sharded steps).
+placing each leaf with the new plan's sharding. ``reshard_tree`` is also
+used live when the runtime shrinks the data-parallel group after a
+failure: on a process group's mesh (``launch.mesh.make_mesh``) each leaf
+becomes a DTensor laid out from its spec, and a leaf that is a DTensor on
+another mesh is gathered and laid out anew. On a mesh of one device with
+no group it moves every leaf onto that device.
 """
 from __future__ import annotations
 
@@ -12,16 +14,22 @@ from typing import Any
 
 import torch
 
+from repro_torch.core.partition_spec import place_tree
+
 
 def reshard_tree(tree: Any, specs: Any, mesh) -> Any:
-    """Every tensor leaf of ``tree`` on the mesh's one device; ``specs``
-    (the leaves' shardings) is kept for the signature: on one device every
-    spec places the whole leaf."""
+    """Every tensor leaf of ``tree`` placed with its (possibly new)
+    ``PartitionSpec`` from ``specs`` (a tree of the same structure; a None
+    spec, or ``specs`` None, is replicated), JAX's ``device_put`` with a
+    ``NamedSharding``. On a mesh of one device with no process group each
+    leaf moves onto that device whole; a mesh of several devices with no
+    group is a shape for planning and raises a ``ValueError``."""
+    if getattr(mesh, "device_mesh", None) is not None:
+        return place_tree(tree, specs, mesh)
     if mesh.size != 1:
-        raise NotImplementedError(
-            f"resharding onto a mesh of {mesh.size} devices is not ported "
-            f"yet: the port trains on one device (ROADMAP Queue 1 item 15: "
-            f"sharded steps)")
+        raise ValueError(
+            f"a mesh of {mesh.size} devices with no process group behind it "
+            f"is a shape for planning; reshard onto launch.mesh.make_mesh")
     device = mesh.devices.flat[0]
 
     def put(leaf):

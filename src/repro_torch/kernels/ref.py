@@ -11,6 +11,7 @@ The PyTorch counterparts of the JAX package's ``kernels/ref.py``:
   rwkv6              the plain version of the WKV kernel (``csrc/wkv6.cu``):
                      the sequential recurrence, one time step at a time, in
                      float32
+  rmsnorm            RMS normalisation in float32, back in x's dtype
 """
 from __future__ import annotations
 
@@ -51,14 +52,16 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True, q_offset=0,
-                      block_k: int = 1024) -> torch.Tensor:
+                      block_k: int = 1024, with_lse: bool = False):
     """Online-softmax attention, looped over KV blocks of ``block_k``.
 
     Matches ``attention`` to float32 accumulation error with peak memory
     O(Sq x block_k) instead of O(Sq x Skv). A row that no key of the blocks
     seen so far may read keeps m = -inf; its exponent is guarded, and a row
     with no key at all outputs 0.
-    q: (B, Sq, H, dh); k, v: (B, Skv, Hkv, dh).
+    q: (B, Sq, H, dh); k, v: (B, Skv, Hkv, dh). ``with_lse`` also returns
+    each row's float32 log-sum-exp of its scores, (B, H, Sq), -inf for a
+    row with no key (for combining attention over key shards).
     """
     B, Sq, H, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -84,7 +87,11 @@ def attention_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * alpha[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
         m = m_new
     out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
-    return out.transpose(1, 2).to(q.dtype)              # (B, Sq, H, dh)
+    out = out.transpose(1, 2).to(q.dtype)               # (B, Sq, H, dh)
+    if with_lse:
+        return out, torch.where(l == 0.0, -torch.inf,
+                                m + torch.log(torch.where(l == 0.0, 1.0, l)))
+    return out
 
 
 def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,4 +122,13 @@ def rwkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.stack(outs, dim=1).to(r.dtype), S
 
 
-__all__ = ["attention", "attention_chunked", "rwkv6"]
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-5) -> torch.Tensor:
+    """x / rms(x) * scale over the last dimension, in float32 (JAX's
+    ``ref.rmsnorm``)."""
+    xf = x.float()
+    y = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+__all__ = ["attention", "attention_chunked", "rwkv6", "rmsnorm"]

@@ -14,11 +14,20 @@
                              state (ZeRO-1: sharded over the data-parallel
                              axes) and of a batch, beside
                              ``Model.param_specs`` / ``cache_specs``
+  place_model                a model's parameters as DTensors from its
+                             specs
 
-On one device every sharding role is the identity, so the plan only has
-to be a one-device plan, and ZeRO-1 is the identity for the arithmetic:
-the specs are data that a sharded step reads. A plan on a mesh of more
-than one device (sharded steps) is ROADMAP Queue 1 item 15.
+Sharded steps: on a mesh with a process group behind it
+(``launch/mesh.make_mesh``, ``make_fake_mesh``) each ``make_*_step``
+places the model's parameters as DTensors from ``Model.param_specs`` and
+its step lays out the optimiser state, batch, boundary activations and
+cache from their specs (``core/partition_spec.place``); the shard functions
+redistribute at the folded tensors, where JAX constrains them, and AdamW
+runs on each rank's shards (``_Layout``). The rwkv, ssm and
+encoder-decoder kinds raise ``NotImplementedError`` there (ROADMAP Queue 1
+item 15). On the 1 x 1 host mesh (no process group) every role is the
+identity and the steps run on plain tensors, as before; a mesh of several
+devices with no group is a shape for planning and raises ``ValueError``.
 
 Weight streaming: the plan's partition ``p`` runs in its own model,
 ``Model(arch, layer_range=(p.layer_start, p.layer_end),
@@ -36,12 +45,16 @@ boundary raises a ``ValueError`` naming it.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.exporter import ShardingPlan, _axes
 from repro_torch.core.partition_spec import PartitionSpec as P
+from repro_torch.core.partition_spec import constrain, place, place_tree
+from repro_torch.models.convert import flatten
+from repro_torch.core.dtensor import (gather_last, is_dtensor,
+                                     logsumexp_last)
 from repro_torch.models.model import Model
 from repro_torch.optim.adamw import AdamWState, adamw_update
 
@@ -50,20 +63,74 @@ KINDS = ("embed", "attn", "cross_attn", "enc_attn", "ffn", "enc_ffn", "moe",
          "ssm", "rwkv_tmix", "rwkv_cmix", "head", "norm")
 
 
+#: the kinds whose sharded blocks are not ported yet: a step of a model
+#: holding one is refused on a process group's mesh (``_layout``)
+UNPORTED_KINDS = ("cross_attn", "enc_attn", "enc_ffn", "ssm", "rwkv_tmix",
+                  "rwkv_cmix")
+_UNPORTED = ("ROADMAP Queue 1 item 15: the sharded steps of the rwkv, ssm "
+             "and encoder-decoder kinds")
+
+
 def _identity(a, role=None):
     return a
 
 
+def _device_mesh(mesh):
+    """The ``DeviceMesh`` behind ``mesh``; None for a mesh of one device
+    with no process group (the steps run on plain tensors). A mesh of
+    several devices with no group is a shape for planning and raises."""
+    dm = getattr(mesh, "device_mesh", None)
+    if dm is None and mesh.size != 1:
+        raise ValueError(
+            f"a mesh of {mesh.size} devices with no process group behind it "
+            f"is a shape for planning (make_production_mesh); steps run on "
+            f"launch.mesh.make_mesh / make_fake_mesh")
+    return dm
+
+
 def shard_fns_from_plan(plan: ShardingPlan, mesh, partition: int = 0,
                         seq_parallel: bool = False) -> Dict[str, Callable]:
-    """One function a block kind, applied at the folded tensors. On a mesh
-    of one device every role is the identity; a larger mesh raises."""
-    if mesh.size != 1:
-        raise NotImplementedError(
-            f"a plan on a mesh of {mesh.size} devices is not ported yet: "
-            f"the port trains and serves on one device (ROADMAP Queue 1 "
-            f"item 15: sharded steps)")
-    return {k: _identity for k in KINDS}
+    """One function a block kind, applied at the folded tensors, JAX's
+    ``steps.py:43-80``: by role, ``boundary`` (B, S, D) to ``P(b,
+    sp_rows, None)``, ``inner`` to ``P(b, rows, c)``, ``heads`` (B, S, H,
+    dh) to ``P(b, rows, c, None)`` and ``experts`` (E, cap, D) to ``P(c,
+    None, None)``, from the kind's batch, rows and cols axes (decode rows
+    None; ``seq_parallel`` shards the boundary's rows over the cols axes
+    too). On a process group's mesh each is a ``DTensor.redistribute``
+    (``constrain``). On a mesh of one device with no group every role is
+    the identity."""
+    if _device_mesh(mesh) is None:
+        return {k: _identity for k in KINDS}
+    decode = plan.mode == "decode"
+
+    def fns_for(kind: str) -> Callable:
+        kp = plan.kind_plan(kind, partition)
+        b, r, c = _axes(kp.batch_axes), _axes(kp.rows_axes), \
+            _axes(kp.cols_axes)
+        rows = None if decode else r
+        sp_rows = rows
+        if seq_parallel and not decode:
+            parts = tuple(x for t in (rows, c) if t is not None
+                          for x in ((t,) if isinstance(t, str) else t))
+            sp_rows = parts[0] if len(parts) == 1 else (parts or None)
+
+        def fn(a, role=None):
+            spec = None
+            if role == "boundary" and a.ndim == 3:
+                spec = P(b, sp_rows, None)
+            elif role == "inner" and a.ndim == 3:
+                spec = P(b, rows, c)
+            elif role == "heads" and a.ndim == 4:
+                spec = P(b, rows, c, None)
+            elif role == "experts" and a.ndim == 3:
+                spec = P(c, None, None)
+            if spec is None:
+                return a
+            return constrain(a, mesh, spec)
+
+        return fn
+
+    return {k: fns_for(k) for k in KINDS}
 
 
 def _tree_map(fn, tree, *rest):
@@ -74,6 +141,26 @@ def _tree_map(fn, tree, *rest):
         return {k: _tree_map(fn, v, *(r[k] for r in rest))
                 for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def place_model(model: Model, plan: ShardingPlan, mesh,
+                partition: int = 0) -> Model:
+    """Swaps each of ``model``'s parameters for a DTensor parameter laid
+    out from ``model.param_specs(plan, partition)`` on ``mesh`` (in place;
+    returns the model). A mesh with no process group leaves it as it
+    is."""
+    if _device_mesh(mesh) is None:
+        return model
+    specs = model.param_specs(plan, partition)
+    for name, param in list(model.named_parameters()):
+        path, leaf = name.rsplit(".", 1)
+        spec = specs
+        for k in name.split("."):
+            spec = spec[k]
+        placed = place(param.detach(), spec, mesh)
+        model.get_submodule(path)[leaf] = torch.nn.Parameter(
+            placed, requires_grad=param.requires_grad)
+    return model
 
 
 # ----------------------------------------------------------------------
@@ -128,6 +215,107 @@ def opt_state_specs(param_shapes: Any, param_specs: Any, mesh, zero1: bool,
                       v=_tree_map(lambda s: s, inner))
 
 
+class _Layout:
+    """Where a sharded step's inputs go on a process group's mesh: the
+    model's parameters (placed when the step is built, ``place_model``),
+    the optimiser state (``opt_state_specs``), the batch
+    (``_batch_specs``), the boundary activations and cotangents
+    (``plan.act_spec``) and the cache (``Model.cache_specs``). Each
+    ``put_*`` lays out what it is given: plain tensors (the same on every
+    rank) are sliced, DTensors redistributed where their layout differs.
+    With no process group it is None (``_layout``)."""
+
+    def __init__(self, model: Model, plan: ShardingPlan, mesh, partition,
+                 zero1: bool, dp_axes: Tuple[str, ...]):
+        self.mesh, self.plan, self.partition = mesh, plan, partition
+        self.model = place_model(model, plan, mesh, partition)
+        pspecs = model.param_specs(plan, partition)
+        o = opt_state_specs(model.param_shapes(), pspecs, mesh, zero1,
+                            dp_axes)
+        self.ospecs = AdamWState(o.step, flatten(o.master), flatten(o.m),
+                                 flatten(o.v))
+
+    def put_state(self, state: AdamWState) -> AdamWState:
+        return place_tree(state, self.ospecs, self.mesh)
+
+    def put_batch(self, batch):
+        specs = _batch_specs(self.plan, self.partition, tuple(batch))
+        return place_tree(batch, specs, self.mesh)
+
+    def put_act(self, a):
+        return place(a, self.plan.act_spec(self.partition), self.mesh)
+
+    def put_cache(self, cache):
+        return place_tree(cache, self.model.cache_specs(
+            self.plan, self.partition), self.mesh)
+
+    def update(self, params, grads, state: AdamWState, lr: float):
+        """AdamW over DTensors: the gradients go into the state's layout
+        (an all-reduce, or with ZeRO-1 a reduce-scatter over the data
+        axes), the update runs in place on each rank's shards (the clip
+        takes the norm over all shards), and where ZeRO-1 shards the
+        master but not the parameter, the new parameter is gathered back
+        into the parameter's own shards (JAX's GSPMD does both moves
+        from the step's in and out shardings)."""
+        dm = self.mesh.device_mesh
+        g, tmp = {}, {}
+        for k, p in params.items():
+            want = state.master[k].placements
+            g[k] = grads[k].redistribute(dm, want)
+            p = p.detach()
+            tmp[k] = p if p.placements == want else p.redistribute(dm, want)
+        _, new_state = adamw_update(tmp, g, state, lr=lr, donate=True)
+        with torch.no_grad():
+            for k, p in params.items():
+                if tmp[k].placements != p.placements:
+                    p.to_local().copy_(tmp[k].redistribute(
+                        dm, p.placements).to_local())
+        return new_state
+
+
+def _layout(model: Model, plan: ShardingPlan, mesh, partition: int = 0,
+            zero1: bool = False,
+            dp_axes: Tuple[str, ...] = ("data",)) -> Optional[_Layout]:
+    """The step's layout on a process group's mesh; None on the host
+    mesh. A model holding a kind whose sharded block is not ported is
+    refused here, when the step is built."""
+    if _device_mesh(mesh) is None:
+        return None
+    unported = sorted({k for seg in model.segments for k in seg.pattern
+                       if k in UNPORTED_KINDS})
+    if unported:
+        raise NotImplementedError(
+            f"the {', '.join(unported)} block(s) on a process group's mesh "
+            f"are not ported yet ({_UNPORTED})")
+    return _Layout(model, plan, mesh, partition, zero1, dp_axes)
+
+
+def _plain(t):
+    """A replicated (or partial) DTensor as a plain tensor on every rank;
+    a plain tensor as it is."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
+def _update_fn(layout: Optional[_Layout], lr: float):
+    if layout is not None:
+        return lambda params, grads, state: layout.update(params, grads,
+                                                          state, lr)
+
+    def update(params, grads, state):
+        _, new_state = adamw_update({k: p.detach() for k, p in
+                                     params.items()}, grads, state, lr=lr,
+                                    donate=True)
+        return new_state
+    return update
+
+
+def _no_graph(layout: Optional[_Layout]):
+    """A serve step's grad mode: ``torch.inference_mode()``, or on a
+    process group's mesh ``torch.no_grad()`` (a DTensor parameter cannot
+    be indexed in inference mode)."""
+    return torch.inference_mode() if layout is None else torch.no_grad()
+
+
 def make_train_step(model: Model, plan: ShardingPlan, mesh,
                     partition: int = 0, lr: float = 3e-4,
                     zero1: bool = False, seq_parallel: bool = False,
@@ -142,21 +330,32 @@ def make_train_step(model: Model, plan: ShardingPlan, mesh,
     then ``adamw_update`` at ``lr``. The step donates its inputs, as JAX's
     jitted step does: the new parameters go into the module's tensors and
     the new state into ``opt_state``'s, which is returned with its step
-    advanced. ``zero1`` and ``dp_axes`` shard the optimiser state over
-    the data-parallel axes in JAX; on one device that is the identity."""
+    advanced.
+
+    On a process group's mesh (``launch.mesh.make_mesh``) building the
+    step places ``model``'s parameters as DTensors from the plan
+    (``place_model``), and the step lays out the optimiser state
+    (``opt_state_specs``: ``zero1`` shards it over ``dp_axes``) and the
+    batch (each rank may pass the whole batch, or DTensors); the loss
+    comes back as a plain tensor on every rank. On one device with no
+    group ``zero1`` and ``dp_axes`` change nothing."""
     sf = shard_fns_from_plan(plan, mesh, partition, seq_parallel)
+    layout = _layout(model, plan, mesh, partition, zero1, dp_axes)
+    update = _update_fn(layout, lr)
 
     def step(opt_state: AdamWState, batch):
+        batch = {k: batch[k] for k in batch_keys}
+        if layout is not None:
+            opt_state, batch = layout.put_state(opt_state), \
+                layout.put_batch(batch)
         params = dict(model.named_parameters())
         with torch.enable_grad():
-            loss = model.loss({k: batch[k] for k in batch_keys},
-                              shard_fns=sf)
+            loss = model.loss(batch, shard_fns=sf)
             grads = torch.autograd.grad(loss, list(params.values()))
-        _, new_state = adamw_update(
-            {k: p.detach() for k, p in params.items()},
-            dict(zip(params, grads)), opt_state, lr=lr, donate=True)
-        return new_state, {"loss": loss.detach()}
+        new_state = update(params, dict(zip(params, grads)), opt_state)
+        return new_state, {"loss": _plain(loss.detach())}
 
+    step.layout = layout
     return step
 
 
@@ -206,50 +405,67 @@ def make_partition_train_step(model: Model, plan: ShardingPlan, mesh,
     ``adamw_update`` at ``lr`` in place, as ``make_train_step``'s. AdamW
     clips by the norm of the partition's own gradients, as JAX's step
     does, so a chain of partition steps gives the full graph's loss but in
-    general not its update. ``zero1`` and ``dp_axes`` shard the optimiser
-    state in JAX; on one device that is the identity."""
+    general not its update. On a process group's mesh the parameters,
+    state and batch are laid out as ``make_train_step``'s, the boundaries
+    and cotangents from ``plan.act_spec`` and the labels from
+    ``plan.data_spec``; boundaries and cotangents come back as DTensors."""
     sf = shard_fns_from_plan(plan, mesh, partition, seq_parallel)
     part = plan.partitions[partition]
+    layout = _layout(model, plan, mesh, partition, zero1, dp_axes)
     _check_boundary_inputs(model, part,
                            part.has_head or not part.has_embed)
+    update = _update_fn(layout, lr)
     params = dict(model.named_parameters())
     names, tensors = list(params), list(params.values())
 
-    def update(opt_state, grads):
-        _, new_state = adamw_update(
-            {k: p.detach() for k, p in params.items()},
-            dict(zip(names, grads)), opt_state, lr=lr, donate=True)
-        return new_state
+    def put(opt_state, *acts):
+        if layout is None:
+            return (opt_state,) + acts
+        return (layout.put_state(opt_state),) + tuple(
+            layout.put_act(a) for a in acts)
 
     def fwd(x):
         return model({"tokens": None}, embedded=x, shard_fns=sf)[0]
 
     if part.has_head:
         def step(opt_state: AdamWState, boundary_in, labels):
+            opt_state, boundary_in = put(opt_state, boundary_in)
+            if layout is not None:
+                labels = place(labels, plan.data_spec(partition), mesh)
             x = boundary_in.detach().requires_grad_(True)
             with torch.enable_grad():
                 lf = fwd(x).float()
-                logz = torch.logsumexp(lf, dim=-1)
-                gold = torch.gather(lf, -1, labels.long()[..., None])[..., 0]
+                logz = logsumexp_last(lf)
+                gold = gather_last(lf, labels.long())
                 loss = torch.mean(logz - gold)
                 *gp, gx = torch.autograd.grad(loss, tensors + [x])
-            return update(opt_state, gp), gx, {"loss": loss.detach()}
+            return update(params, dict(zip(names, gp)), opt_state), gx, \
+                {"loss": _plain(loss.detach())}
     elif part.has_embed:
         def step(opt_state: AdamWState, batch, cotangent_in):
+            opt_state, cotangent_in = put(opt_state, cotangent_in)
+            batch = {k: batch[k] for k in batch_keys}
+            if layout is not None:
+                batch = layout.put_batch(batch)
             with torch.enable_grad():
-                h, _ = model({k: batch[k] for k in batch_keys}, shard_fns=sf)
+                h, _ = model(batch, shard_fns=sf)
                 gp = torch.autograd.grad(h, tensors,
                                          grad_outputs=cotangent_in)
-            return update(opt_state, gp), h.detach()
+            return update(params, dict(zip(names, gp)), opt_state), \
+                h.detach()
     else:
         def step(opt_state: AdamWState, boundary_in, cotangent_in):
+            opt_state, boundary_in, cotangent_in = put(
+                opt_state, boundary_in, cotangent_in)
             x = boundary_in.detach().requires_grad_(True)
             with torch.enable_grad():
                 h = fwd(x)
                 *gp, gx = torch.autograd.grad(h, tensors + [x],
                                               grad_outputs=cotangent_in)
-            return update(opt_state, gp), h.detach(), gx
+            return update(params, dict(zip(names, gp)), opt_state), \
+                h.detach(), gx
 
+    step.layout = layout
     return step
 
 
@@ -263,24 +479,35 @@ def make_serve_step(model: Model, plan: ShardingPlan, mesh, mode: str,
     ``pos`` is a 0-d int32 tensor. Prefill writes from position 0 and
     returns the logits of the last position only. ``batch_keys`` names the
     batch entries the step reads; others are dropped. A step runs under
-    ``torch.inference_mode()``: it builds no autograd graph."""
+    ``torch.inference_mode()``: it builds no autograd graph. On a process
+    group's mesh the parameters are placed when the step is built, the
+    step lays out the cache (``Model.cache_specs``; decode writes each
+    rank's own shard at ``pos``) and the batch, and logits and cache come
+    back as DTensors."""
     sf = shard_fns_from_plan(plan, mesh, partition)
+    layout = _layout(model, plan, mesh, partition)
+    no_graph = _no_graph(layout)
 
-    def pick(batch):
-        return {k: batch[k] for k in batch_keys}
+    def pick(cache, batch):
+        batch = {k: batch[k] for k in batch_keys}
+        if layout is not None:
+            return layout.put_cache(cache), layout.put_batch(batch)
+        return cache, batch
 
     if mode == "prefill":
-        @torch.inference_mode()
+        @no_graph
         def step(cache, batch):
             zero = torch.zeros((), dtype=torch.int32,
                                device=batch["tokens"].device)
-            return model(pick(batch), cache=cache, cache_pos=zero,
+            cache, batch = pick(cache, batch)
+            return model(batch, cache=cache, cache_pos=zero,
                          shard_fns=sf, head_last_only=True)
     else:
-        @torch.inference_mode()
+        @no_graph
         def step(cache, batch, pos):
-            return model(pick(batch), cache=cache, cache_pos=pos,
-                         shard_fns=sf)
+            cache, batch = pick(cache, batch)
+            return model(batch, cache=cache, cache_pos=pos, shard_fns=sf)
+    step.layout = layout
     return step
 
 
@@ -298,30 +525,41 @@ def make_partition_serve_step(model: Model, plan: ShardingPlan, mesh,
     (the embed partition's flavour wins where it holds the head too).
     ``pos`` is a decode step's 0-d int32 position; a prefill writes from
     0, and a head partition's prefill returns the last position's logits
-    only. Runs under ``torch.inference_mode()``."""
+    only. Runs under ``torch.inference_mode()``. On a process group's
+    mesh, laid out as ``make_serve_step``'s, a boundary from
+    ``plan.act_spec``."""
     sf = shard_fns_from_plan(plan, mesh, partition)
     part = plan.partitions[partition]
+    layout = _layout(model, plan, mesh, partition)
     _check_boundary_inputs(model, part, not part.has_embed)
     last = part.has_head and mode == "prefill"
+    no_graph = _no_graph(layout)
 
     def run(cache, x_or_batch, pos):
         if part.has_embed:
-            return model({k: x_or_batch[k] for k in batch_keys},
-                         cache=cache, cache_pos=pos, shard_fns=sf,
+            batch = {k: x_or_batch[k] for k in batch_keys}
+            if layout is not None:
+                cache, batch = layout.put_cache(cache), \
+                    layout.put_batch(batch)
+            return model(batch, cache=cache, cache_pos=pos, shard_fns=sf,
                          head_last_only=last)
+        if layout is not None:
+            cache, x_or_batch = layout.put_cache(cache), \
+                layout.put_act(x_or_batch)
         return model({"tokens": None}, embedded=x_or_batch, cache=cache,
                      cache_pos=pos, shard_fns=sf, head_last_only=last)
 
     if mode == "prefill":
-        @torch.inference_mode()
+        @no_graph
         def step(cache, x_or_batch):
             x = x_or_batch["tokens"] if part.has_embed else x_or_batch
             zero = torch.zeros((), dtype=torch.int32, device=x.device)
             return run(cache, x_or_batch, zero)
     else:
-        @torch.inference_mode()
+        @no_graph
         def step(cache, x_or_batch, pos):
             return run(cache, x_or_batch, pos)
+    step.layout = layout
     return step
 
 

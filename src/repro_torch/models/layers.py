@@ -17,6 +17,8 @@ from typing import Dict, Optional, Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.dtensor import matmul, replicated
+
 # ----------------------------------------------------------------------
 # sharding-role registry (kind -> param name -> role)
 # ----------------------------------------------------------------------
@@ -134,9 +136,10 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,
                theta: float) -> torch.Tensor:
-    """x: (B, S, H, dh); positions: (B, S) int."""
+    """x: (B, S, H, dh); positions: (B, S) int. Where ``positions`` is a
+    DTensor (a sharded step) the tables are computed on its shards."""
     dh = x.shape[-1]
-    freqs = rope_freqs(dh, theta, x.device)                  # (dh/2,)
+    freqs = replicated(positions, rope_freqs(dh, theta, x.device))  # (dh/2,)
     angles = positions[..., None].float() * freqs            # (B, S, dh/2)
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
@@ -181,14 +184,14 @@ def init_ffn(gen: Optional[torch.Generator], d_model: int, d_ff: int,
 def apply_ffn(x: torch.Tensor, p: Dict[str, torch.Tensor], act: str,
               norm: str, shard_fn=lambda a, role=None: a) -> torch.Tensor:
     h = block_norm(x, p, norm)
-    up = h @ p["w_up"]
+    up = matmul(h, p["w_up"])
     if act == "swiglu":
-        inner = F.silu((h @ p["w_gate"]).float()).to(x.dtype) * up
+        inner = F.silu(matmul(h, p["w_gate"]).float()).to(x.dtype) * up
     elif act == "gelu":
         # jax.nn.gelu's default is the tanh approximation
         inner = F.gelu(up.float(), approximate="tanh").to(x.dtype)
     else:  # relu_sq
         inner = torch.square(F.relu(up.float())).to(x.dtype)
     inner = shard_fn(inner, role="inner")
-    out = inner @ p["w_down"]
+    out = matmul(inner, p["w_down"])
     return x + shard_fn(out, role="boundary")

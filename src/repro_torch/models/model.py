@@ -39,7 +39,12 @@ The SSM scan is plain PyTorch, as JAX's is.
 Sharding: ``param_specs(plan, partition)`` and ``cache_specs(plan,
 partition)`` give JAX's ``PartitionSpec`` trees of the parameters and
 the cache from a plan (``core/partition_spec.py``); on one device each
-places the whole tensor.
+places the whole tensor. The sharded steps (``launch/steps.py``) swap the
+parameters for DTensors; the blocks then make their own tensors
+(positions, rotary tables, the MoE buffers) on the same mesh and take
+each product, lookup and attention shard by shard where DTensor's own
+rules fall short (``core/dtensor.py``); on plain tensors those helpers
+change nothing.
 
 Decode: ``init_cache`` builds JAX's cache tree, and ``forward(batch,
 cache=..., cache_pos=...)`` returns ``(logits, new_cache)`` in that tree.
@@ -76,6 +81,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.dtensor import (embed, gather_last, local,
+                                     logsumexp_last, matmul, placed_like)
 from repro_torch.core.exporter import _axes
 from repro_torch.core.partition_spec import PartitionSpec
 from repro_torch.models import attention as A
@@ -317,7 +324,7 @@ class Model(nn.Module):
             x = embedded
         else:
             tokens = batch["tokens"]
-            x = params["embed"]["table"][tokens.long()] \
+            x = embed(params["embed"]["table"], tokens.long()) \
                 if self.include_embed else None
             x = get_sf("embed")(x, role="boundary")
 
@@ -328,6 +335,8 @@ class Model(nn.Module):
             positions = (base + torch.arange(Sq, dtype=torch.int32,
                                              device=x.device))
             positions = positions[None, :].expand(B, Sq)
+            # a sharded step: laid out as x's batch and rows
+            positions = placed_like(x, positions, {0: 0, 1: 1})
         mrope = batch.get("mrope_positions") if arch.mrope else None
 
         new_cache: Dict[str, Any] = {}
@@ -371,7 +380,7 @@ class Model(nn.Module):
                          params["final_norm"].get("ln_bias"), arch.norm)
         w_head = (params["embed"]["table"].T if arch.tie_embeddings
                   else params["head"]["w"])
-        logits = x @ w_head
+        logits = matmul(x, w_head)
         logits = get_sf("head")(logits, role="inner")
         return logits, new_cache
 
@@ -482,10 +491,10 @@ class Model(nn.Module):
         logits, _ = self.forward(batch, shard_fns=shard_fns)
         labels = batch["labels"].long()
         lf = logits.float()
-        logz = torch.logsumexp(lf, dim=-1)
-        gold = torch.gather(lf, -1, labels[..., None])[..., 0]
+        logz = logsumexp_last(lf)
+        gold = gather_last(lf, labels)
         mask = batch.get("loss_mask")
-        mask = torch.ones_like(lf[..., 0]) if mask is None else mask.float()
+        mask = torch.ones_like(logz) if mask is None else mask.float()
         return torch.sum((logz - gold) * mask) / \
             torch.clamp(torch.sum(mask), min=1.0)
 
@@ -617,7 +626,7 @@ def _store(buf: torch.Tensor, layers: List[torch.Tensor]) -> torch.Tensor:
     itself where every layer wrote into it or each value fits ``buf[i]``
     (copied in place), else the values stacked into a new tensor (a new
     dtype, as the RWKV ``shift`` of a float32 model after a prefill)."""
-    if all(t.data_ptr() == buf[i].data_ptr() and t.shape == buf[i].shape
+    if all(_aliases(t, buf[i]) and t.shape == buf[i].shape
            and t.dtype == buf.dtype for i, t in enumerate(layers)):
         return buf
     if all(t.shape == buf.shape[1:] and t.dtype == buf.dtype
@@ -626,6 +635,14 @@ def _store(buf: torch.Tensor, layers: List[torch.Tensor]) -> torch.Tensor:
             buf[i].copy_(t)
         return buf
     return torch.stack(layers)
+
+
+def _aliases(t: torch.Tensor, ref: torch.Tensor) -> bool:
+    """``t`` starts where ``ref`` does in the same storage (of their local
+    shards, for DTensors)."""
+    t, ref = local(t), local(ref)
+    return (t.untyped_storage()._cdata == ref.untyped_storage()._cdata
+            and t.storage_offset() == ref.storage_offset())
 
 
 def build_model(arch: ArchConfig, **kw) -> Model:

@@ -28,6 +28,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.dtensor import full_local, mesh_of, replicated_on
 from repro_torch.models.layers import block_norm, dense_init, init_norm, randn
 
 #: routing of each ``apply_moe`` call while a list; None records nothing
@@ -65,14 +66,21 @@ def capacity(tokens: int, top_k: int, num_experts: int,
 def apply_moe(x: torch.Tensor, p: Dict[str, torch.Tensor], *, top_k: int,
               act: str, norm: str, capacity_factor: float = 1.25,
               shard_fn=lambda a, role=None: a) -> torch.Tensor:
-    """x: (B, S, D) -> (B, S, D) with residual."""
+    """x: (B, S, D) -> (B, S, D) with residual.
+
+    On DTensors (a sharded step) the routing and the dispatch (sort,
+    ranks, the scatter into the expert buffers and the gather back) run
+    on every rank over the whole batch, gathered, so that capacity and
+    drops are the one-device step's; the expert products run on the
+    buffers laid out by the ``experts`` role."""
     B, S, D = x.shape
     E = p["router"].shape[-1]
     h = block_norm(x, p, norm)
-    tokens = h.reshape(B * S, D)
+    mesh = mesh_of(h)
+    tokens = full_local(h).reshape(B * S, D)
     T = B * S
 
-    logits = tokens.float() @ p["router"]                       # (T, E)
+    logits = tokens.float() @ full_local(p["router"])           # (T, E)
     probs = torch.softmax(logits, dim=-1)
     # jax.lax.top_k: the lower index first among equal values
     gate_vals, expert_ids = torch.sort(probs, dim=-1, descending=True,
@@ -103,7 +111,8 @@ def apply_moe(x: torch.Tensor, p: Dict[str, torch.Tensor], *, top_k: int,
     buf = torch.zeros((sink + 1, D), dtype=tokens.dtype, device=x.device)
     buf[slot] = torch.where(keep[:, None], tokens[sorted_token], 0.0
                             ).to(tokens.dtype)
-    xe = shard_fn(buf[:-1].reshape(E, cap, D), role="experts")
+    xe = shard_fn(replicated_on(mesh, buf[:-1].reshape(E, cap, D)),
+                  role="experts")
 
     up = torch.bmm(xe, p["w_up"])
     if act == "swiglu":
@@ -112,7 +121,7 @@ def apply_moe(x: torch.Tensor, p: Dict[str, torch.Tensor], *, top_k: int,
     else:
         # jax.nn.gelu's default is the tanh approximation
         inner = F.gelu(up.float(), approximate="tanh").to(x.dtype)
-    ye = shard_fn(torch.bmm(inner, p["w_down"]), role="experts")
+    ye = full_local(shard_fn(torch.bmm(inner, p["w_down"]), role="experts"))
 
     # gather back, weighted by the gates
     ye_flat = torch.cat([ye.reshape(sink, D),
@@ -125,7 +134,8 @@ def apply_moe(x: torch.Tensor, p: Dict[str, torch.Tensor], *, top_k: int,
     out = by_token[:, 0]
     for j in range(1, top_k):
         out = out + by_token[:, j]
-    return x + shard_fn(out.reshape(B, S, D), role="boundary")
+    out = replicated_on(mesh, out.reshape(B, S, D))
+    return x + shard_fn(out, role="boundary")
 
 
 def _rank_in_group(sorted_ids: torch.Tensor) -> torch.Tensor:

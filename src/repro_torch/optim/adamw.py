@@ -38,12 +38,13 @@ def _key(name: str):
 
 def adamw_init(params: Dict[str, torch.Tensor]) -> AdamWState:
     """Step 0, a float32 copy of every parameter and zero moments, on each
-    parameter's device."""
+    parameter's device (laid out as the parameter, where it is a
+    DTensor)."""
     params = {k: p.detach() for k, p in params.items()}
     master = {k: p.to(torch.float32, copy=True) for k, p in params.items()}
 
     def zeros():
-        return {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return {k: torch.zeros_like(p, dtype=torch.float32)
                 for k, p in params.items()}
 
     device = next(iter(params.values())).device if params else None
